@@ -9,7 +9,8 @@ Phases, each printing one line (or a few), any failure exits non-zero:
 
 1. device  — ``nvidia-smi`` name and power limit, torch/CUDA versions; exits
    non-zero at once when ``torch.cuda.is_available()`` is false;
-2. build   — compiles ``kernels/csrc/*.cu`` with nvcc for sm_90a;
+2. build   — compiles ``kernels/csrc/*.cu`` with nvcc for sm_90a, one nvcc
+   per source, all started together; prints ptxas registers and spills;
 3. B2      — the RDM-former kernel against its plain matmul version (and the
    cuFFT form) at G2 geometry, 52 x 332 x 3404, f32 tolerance;
 4. B1      — the cascaded-CFAR kernel against its plain version, bit for bit,
@@ -21,7 +22,21 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    full width (13 beams, win_size 4, 3 windows) with the CLI's default
    ``.bin`` reader; checks both kernels ran,
    the RDMs are finite and agree with the plain versions, and the target is
-   detected in the beam it steers to; times each stage with CUDA events.
+   detected in the beam it steers to; times each stage with CUDA events;
+6. B3      — the fused PC + RDM kernel against its plain version (two
+   complex64 matmuls) and its cuFFT form at G0 geometry, both pulse
+   segments of two beams (2 x 1536 x 62 -> 2 x 2048 x 62 and
+   2 x 1536 x 504 -> 2 x 2048 x 512), each read in place from the beams;
+7. B1 (G0) — the CFAR kernel bit for bit against its plain version at G0
+   geometry (2048 x 62 and 2048 x 512, one segment, n_clutter 6), on B3's
+   summed, notched output and on crafted RDMs;
+8. G0      — writes a seeded 4-frame G1 capture (the known-good target,
+   per-frame frequency indices 5, 2, 9, 5) and runs
+   ``radar_signal_process_tpu_torch.cli dmx`` over it at full G0 width;
+   checks B3 and B1 ran, the RDMs are finite and agree with the plain
+   versions, and the target is measured within 0.3 m/s and 2 range cells in
+   every frame; times each stage with CUDA events, the ``.bin`` parse, and
+   the frame rate against the radar's 12.5 frames/s.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -45,6 +60,10 @@ SEED = 20250817
 G2_BATCH, G2_PULSES, G2_RANGE = 52, 332, 3404
 RDM_RTOL, RDM_ATOL = 2e-4, 2e-3   # the repo's f32 RDM tolerance
 TARGET_V, TARGET_R = -5.7, 320.0  # m/s, m: the known-good G2 drive
+G0_BATCH = 2                      # the two monopulse beams
+G0_FREQ_INDEX = (5, 2, 9, 5)      # per-frame frequency index of the G0 capture
+G0_BEAM_POS = (2, 2, 3, 2)
+G0_REAL_TIME = 1.0 / (1536 * 52.08e-6)  # frames/s: one G0 frame per 80.0 ms
 REPS = 10
 
 
@@ -98,9 +117,12 @@ def phase_build() -> None:
     print(f"build: kernels/_build/{_build.library_path().name} from "
           f"{len(list(_build.CSRC.glob('*.cu')))} sources (nvcc sm_90a) in {dt:.2f} s")
     log = _build.library_path().with_suffix(".log").read_text()
+    src = "?"
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas [{src}]: {line.strip()}")
 
 
 def phase_rdm(dev) -> tuple[dict, torch.Tensor]:
@@ -173,13 +195,19 @@ def _on_threshold_value() -> tuple[np.float32, np.float32]:
     fail("no on-threshold value found")
 
 
-def crafted_rdm(shape, rng, n_clutter: int, segments) -> np.ndarray:
+def crafted_rdm(shape, rng, n_clutter: int, segments, unshifted: bool = False) -> np.ndarray:
     """RDM with notched zero rows, exact neighbour ties, segment-edge hits and
-    a cell exactly on its CFAR threshold."""
+    a cell exactly on its CFAR threshold.  The notched rows are the G2
+    divisor-20 re-notch band, or with ``unshifted`` the G0 clutter rows at
+    both ends of the unshifted spectrum."""
     b, nv, nr = shape
     rdm = (np.abs(rng.standard_normal(shape)) + 0.5).astype(np.float32)
-    c = nv // 2 - 1
-    rdm[:, c - 17 : c + 18, :] = 0.0               # divisor-20 re-notch band
+    if unshifted:
+        rdm[:, : n_clutter + 1, :] = 0.0
+        rdm[:, nv - n_clutter :, :] = 0.0
+    else:
+        c = nv // 2 - 1
+        rdm[:, c - 17 : c + 18, :] = 0.0           # divisor-20 re-notch band
     lo, hi = n_clutter + 1, nv - n_clutter
     for k in range(b):
         for _ in range(200):
@@ -191,8 +219,9 @@ def crafted_rdm(shape, rng, n_clutter: int, segments) -> np.ndarray:
             for r in (a, a + 1, e - 2, e - 1):
                 rdm[k, int(rng.integers(lo, hi)), r] += 40.0
     v, x = _on_threshold_value()                   # one cell on its threshold
-    rdm[0, lo + 40 : lo + 80, 300:340] = v
-    rdm[0, lo + 60, 320] = x
+    c0 = min(300, nr - 40)
+    rdm[0, lo + 40 : lo + 80, c0 : c0 + 40] = v
+    rdm[0, lo + 60, c0 + 20] = x
     return rdm
 
 
@@ -400,6 +429,268 @@ def phase_slice(dev) -> dict:
     return launches
 
 
+def rdm_error(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
+    """(max |got - want|, max relative error, peak |want|)."""
+    err = (got - want).abs()
+    return (float(err.max()), float((err / want.abs().clamp_min(1e-30)).max()),
+            float(want.abs().max()))
+
+
+def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
+    from radar_signal_process_tpu_torch.kernels.pc_rdm import fused_pc_rdm, fused_pc_rdm_plain
+
+    prof = chain.profile
+    rng = np.random.default_rng(SEED + 3)
+    shape = (G0_BATCH, prof.prt_per_frame, prof.point_prt)
+    x = np.empty(shape, np.complex64)
+    x.real = rng.standard_normal(shape, dtype=np.float32)
+    x.imag = rng.standard_normal(shape, dtype=np.float32)
+    beams = torch.from_numpy(x).to(dev)
+    ps = prof.segment_points[0]
+    segments = {
+        "short": (beams[..., :ps], chain.pc_short_re, chain.pc_short_im),
+        "long": (beams[..., ps:], chain.pc_long_re, chain.pc_long_im),
+    }
+    ffts = chain.front_fft(beams)
+    outs, fns, errs = [], {}, {}
+    ok = True
+    for (name, (seg, m_re, m_im)), fft in zip(segments.items(), ffts):
+        def run_kernel(seg=seg, m_re=m_re, m_im=m_im):
+            return fused_pc_rdm(seg, m_re, m_im, chain.dft_re, chain.dft_im)
+
+        def run_plain(seg=seg, m_re=m_re, m_im=m_im):
+            return fused_pc_rdm_plain(seg, m_re, m_im, chain.dft_re, chain.dft_im)
+
+        got, want = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"B3 {name}: bad output shape {tuple(got.shape)} or non-finite values")
+        max_abs, max_rel, peak = rdm_error(got, want)
+        seg_ok = bool(((got - want).abs() <= 2e-5 * peak + 2e-4 * want.abs()).all())
+        fft_abs, _, fft_peak = rdm_error(got, fft)
+        fft_ok = fft_abs <= 5e-5 * fft_peak
+        ok = ok and seg_ok and fft_ok
+        errs[name] = (max_abs, max_rel, peak, fft_abs / fft_peak, seg_ok, fft_ok)
+        fns[f"{name}_kernel"], fns[f"{name}_plain"] = run_kernel, run_plain
+        outs.append(got)
+        del want
+    fns["cufft_both"] = lambda: chain.front_fft(beams)
+    ms = cuda_ms(fns)
+    for name, (max_abs, max_rel, peak, fft_rel, seg_ok, fft_ok) in errs.items():
+        seg = segments[name][0]
+        print(f"B3 fused_pc_rdm [{name}] {tuple(seg.shape)} in place (row stride "
+              f"{seg.stride(-2)}) -> {tuple(outs[0 if name == 'short' else 1].shape)}: "
+              f"max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} (peak {peak:.3e}) vs plain "
+              f"(2e-5*peak + 2e-4*|want|) -> {'ok' if seg_ok else 'FAIL'}; vs cuFFT "
+              f"{fft_rel:.3e}*peak (<= 5e-5) -> {'ok' if fft_ok else 'FAIL'}; median ms "
+              f"kernel {ms[f'{name}_kernel']:.3f} plain {ms[f'{name}_plain']:.3f}")
+    kernel_ms = ms["short_kernel"] + ms["long_kernel"]
+    plain_ms = ms["short_plain"] + ms["long_plain"]
+    print(f"B3 per frame (both segments): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"cuFFT form {ms['cufft_both']:.3f} ms (median of {REPS}, CUDA events)")
+    if not ok:
+        fail("B3: kernel disagrees with its plain version or its cuFFT form")
+    return {"max_abs_err": max(e[0] for e in errs.values()),
+            "max_rel_err": max(e[1] for e in errs.values()),
+            "ms": kernel_ms, "plain_ms": plain_ms, "cufft_ms": ms["cufft_both"],
+            "ms_by_segment": {k: ms[f"{k}_kernel"] for k in segments},
+            "plain_ms_by_segment": {k: ms[f"{k}_plain"] for k in segments}}, tuple(outs)
+
+
+def phase_cfar_g0(dev, chain, abs_rdms) -> dict:
+    from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
+    from radar_signal_process_tpu_torch.ops.cfar import cascaded_cfar2d as plain_cfar
+    from radar_signal_process_tpu_torch.ops.mtd import zero_velocity_notch_unshifted
+
+    n_clutter = chain.n_clutter
+    cfg = chain.profile.cfar
+    sums = [zero_velocity_notch_unshifted(a[0] + a[1], n_clutter) for a in abs_rdms]
+    rng = np.random.default_rng(SEED + 4)
+    cases = [(f"B3 sum {name}, notched", x) for name, x in zip(("short", "long"), sums)]
+    for nr in (62, 512):
+        crafted = crafted_rdm((1, 2048, nr), rng, n_clutter, ((0, nr),), unshifted=True)
+        cases.append((f"crafted {nr} columns", torch.from_numpy(crafted[0]).to(dev)))
+    max_abs, mismatched = 0.0, 0
+    for label, x in cases:
+        kf, kv = cascaded_cfar2d(x, cfg, n_clutter)
+        pf, pv = plain_cfar(x, cfg, n_clutter)
+        torch.cuda.synchronize()
+        diff = torch.cat([(kf != pf).flatten(), (kv != pv).flatten()])
+        n_diff = int(diff.sum())
+        max_abs = max(max_abs, float(diff.float().max()))
+        mismatched += n_diff
+        print(f"B1 cascaded_cfar2d G0 [{label}] {tuple(x.shape)} n_clutter {n_clutter}: flags "
+              f"{int(kf.sum())}/{int(pf.sum())} vflags {int(kv.sum())}/{int(pv.sum())} "
+              f"(kernel/plain), {n_diff} differ -> "
+              f"{'bit-identical' if n_diff == 0 else 'MISMATCH'}")
+    if mismatched:
+        fail(f"B1 at G0: {mismatched} kernel flags differ from the plain version")
+    fns = {}
+    for name, x in zip(("short", "long"), sums):
+        fns[f"{name}_kernel"] = lambda x=x: cascaded_cfar2d(x, cfg, n_clutter)
+        fns[f"{name}_plain"] = lambda x=x: plain_cfar(x, cfg, n_clutter)
+    ms = cuda_ms(fns)
+    print("B1 timing at G0 (median ms): " + " ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return {"max_abs_err": max_abs, "mismatched_flags": mismatched,
+            "ms": ms["short_kernel"] + ms["long_kernel"],
+            "plain_ms": ms["short_plain"] + ms["long_plain"]}
+
+
+def write_g0_scene(root: str, prof, chain_cfg, rng) -> tuple[float, float]:
+    """Seeded 4-frame G1 capture with the known-good G0 target: fd = -60
+    Doppler bins, long-pulse cell 100, short-pulse cell 20, right beam 0.8 x
+    left, int-rounded at x5000, per-frame frequency index and beam position.
+    Returns (Doppler shift [Hz], true long-pulse range [m])."""
+    from radar_signal_process_tpu_torch.ops.waveforms import reference_pulses
+    from radar_signal_process_tpu_torch.sim import write_g1_capture
+
+    n_frames, n = len(G0_FREQ_INDEX), prof.prt_per_frame
+    fd = -60 * prof.prf / chain_cfg.mtd_fft_length
+    p_short, p_long = reference_pulses(prof)
+    s0, s1 = prof.segment_starts
+    m = np.arange(n_frames * n).reshape(n_frames, n)
+    ramp = np.exp(1j * 2 * np.pi * fd * m * prof.prt)
+    base = np.zeros((n_frames, n, prof.point_prt), complex)
+    base[:, :, s0 + 20 : s0 + 20 + len(p_short)] += ramp[..., None] * p_short
+    base[:, :, s1 + 100 : s1 + 100 + len(p_long)] += ramp[..., None] * p_long
+    noise = rng.normal(0, 2.0, (2, 2) + base.shape)
+    left = np.round(5000 * base.real + noise[0, 0]) + 1j * np.round(5000 * base.imag + noise[0, 1])
+    right = np.round(4000 * base.real + noise[1, 0]) + 1j * np.round(4000 * base.imag + noise[1, 1])
+    write_g1_capture(root, left, right, frames_per_file=10, angle_deg=100.0,
+                     freq_index=list(G0_FREQ_INDEX), beam_pos=list(G0_BEAM_POS))
+    r_true = 100 * prof.delta_r + chain_cfg.r_sys_err_long - chain_cfg.r_measure_err_long
+    return fd, r_true
+
+
+def phase_g0_slice(dev) -> dict:
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.config import G0_PROFILE as prof
+    from radar_signal_process_tpu_torch.config import G0ChainConfig
+    from radar_signal_process_tpu_torch.ingest import g1_reader_class
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.kernels import pc_rdm as kpcr
+    from radar_signal_process_tpu_torch.models.g0_chain import C_LIGHT, G0Chain
+    from radar_signal_process_tpu_torch.ops.cfar import cascaded_cfar2d as plain_cfar
+    from radar_signal_process_tpu_torch.ops.measure import extract_detections, motion_parameters
+    from radar_signal_process_tpu_torch.ops.mtd import zero_velocity_notch_unshifted
+    from radar_signal_process_tpu_torch.ops.tables import freq_value
+
+    chain_cfg = G0ChainConfig()
+    rng = np.random.default_rng(SEED + 5)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        fd, r_true = write_g0_scene(root, prof, chain_cfg, rng)
+        print(f"G0: wrote {len(G0_FREQ_INDEX)}-frame G1 capture (2 beams x 1536 x 566, 24-bit) "
+              f"in {time.perf_counter() - t0:.1f} s; target fd {fd:.2f} Hz, long range "
+              f"{r_true:.2f} m, freq index per frame {list(G0_FREQ_INDEX)}")
+        stamps: list = []
+        first: dict = {}
+        found: list = []
+
+        def on_result(frame_idx, res):
+            stamps.append(time.perf_counter())
+            for t in (res.rdm_sum_short, res.rdm_sum_long, res.rdm_diff_short, res.rdm_diff_long):
+                if not bool(torch.isfinite(t).all()):
+                    fail(f"G0: non-finite RDM in frame {frame_idx}")
+            fi = G0_FREQ_INDEX[frame_idx - 1]
+            v_true = -(C_LIGHT / freq_value(fi)) * fd / 2.0
+            m = res.measurements_long
+            if not bool(m.valid[0]):
+                fail(f"G0: no long-pulse detection in frame {frame_idx}")
+            dv = float(m.velocity_ms[0]) - v_true
+            dr = float(m.range_m[0]) - r_true
+            found.append((frame_idx, fi, round(dv, 4), round(dr, 3)))
+            if abs(dv) >= 0.3 or abs(dr) >= 2 * prof.delta_r:
+                fail(f"G0: frame {frame_idx} strongest long detection off the truth by "
+                     f"{dv:.3f} m/s, {dr:.2f} m")
+            if not first:
+                first.update(idx=frame_idx, res=res, fi=fi)
+
+        kpcr.fused_pc_rdm.launches = 0
+        kcfar.cascaded_cfar2d.launches = 0
+        argv = ["dmx", "--input", root, "--frames", str(len(G0_FREQ_INDEX)), "--device", "cuda"]
+        t0 = time.perf_counter()
+        rc = cli.main(argv, on_result=on_result)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fused_pc_rdm": kpcr.fused_pc_rdm.launches,
+                    "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches}
+        if rc != 0 or len(stamps) != len(G0_FREQ_INDEX):
+            fail(f"G0: cli dmx rc {rc}, {len(stamps)} frames (want {len(G0_FREQ_INDEX)})")
+        if min(launches.values()) < 1:
+            fail(f"G0: a kernel did not run on the main path: {launches}")
+        rate = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        reader_cls = g1_reader_class()   # the one the CLI picked by default
+        print(f"G0: cli dmx ({reader_cls.__name__}) {len(stamps)} frames in {wall:.2f} s "
+              f"(the first builds the chain's constants); frames 2-{len(stamps)} at "
+              f"{rate:.2f} frames/s (real time {G0_REAL_TIME:.2f}); launches {launches}; "
+              f"strongest long detection (frame, freq, dv m/s, dr m): {found}")
+
+        # the first frame against the plain versions on the same data
+        chain = G0Chain(device=dev, freq_index=first["fi"])
+        reader = reader_cls(root, prt_num=prof.prt_per_frame, point_prt=prof.point_prt,
+                            frames_per_file=10)
+        t0 = time.perf_counter()
+        frames = [reader.read_frame(i) for i in range(1, len(G0_FREQ_INDEX) + 1)]
+        parse_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        left, right = frames[first["idx"] - 1][:2]
+        beams = chain.beams(left, right)
+        ps = prof.segment_points[0]
+        nc = chain.n_clutter
+        res = first["res"]
+        ok = True
+        for name, seg, m_re, m_im in (
+                ("short", beams[..., :ps], chain.pc_short_re, chain.pc_short_im),
+                ("long", beams[..., ps:], chain.pc_long_re, chain.pc_long_im)):
+            a = kpcr.fused_pc_rdm_plain(seg, m_re, m_im, chain.dft_re, chain.dft_im)
+            want = zero_velocity_notch_unshifted(a[0] + a[1], nc)
+            got = getattr(res, f"rdm_sum_{name}")
+            max_abs, _, peak = rdm_error(got, want)
+            rdm_ok = bool(((got - want).abs() <= 2e-5 * peak + 2e-4 * want.abs()).all())
+            pf, pv = plain_cfar(got, prof.cfar, nc)
+            flags_ok = (torch.equal(pf, getattr(res, f"flags_{name}"))
+                        and torch.equal(pv, getattr(res, f"vflags_{name}")))
+            ok = ok and rdm_ok and flags_ok
+            print(f"G0: frame {first['idx']} {name} sum RDM vs plain max_abs_err {max_abs:.3e} "
+                  f"(peak {peak:.3e}) -> {'ok' if rdm_ok else 'FAIL'}; flags vs plain CFAR on "
+                  f"the returned RDM -> {'bit-identical' if flags_ok else 'MISMATCH'}")
+        if not ok:
+            fail("G0: dmx output disagrees with the plain versions")
+
+        params, _ = chain.frame_params(first["fi"], G0_BEAM_POS[0])
+        host = [torch.from_numpy(np.asarray(x, np.complex64)).pin_memory() for x in (left, right)]
+        s_abs, l_abs = chain.front(beams)
+        sum_s = zero_velocity_notch_unshifted(s_abs[0] + s_abs[1], nc)
+        sum_l = zero_velocity_notch_unshifted(l_abs[0] + l_abs[1], nc)
+        f_s, _ = kcfar.cascaded_cfar2d(sum_s, prof.cfar, nc)
+        f_l, _ = kcfar.cascaded_cfar2d(sum_l, prof.cfar, nc)
+        d_s = extract_detections(f_s, sum_s, 32)
+        d_l = extract_detections(f_l, sum_l, 32)
+        diff_s, diff_l = s_abs[1] - s_abs[0], l_abs[1] - l_abs[0]
+        kw = dict(delta_r=prof.delta_r, v_scale=params.v_scale, delta_v=params.delta_v,
+                  k_value=params.k_value, beam_pos=params.beam_pos,
+                  beam_angle_step=chain_cfg.beam_angle_step, n_clutter=nc)
+        ms = cuda_ms({
+            "h2d": lambda: torch.stack([h.to(dev, non_blocking=True) for h in host]),
+            "b3_short": lambda: kpcr.fused_pc_rdm(beams[..., :ps], chain.pc_short_re,
+                                                  chain.pc_short_im, chain.dft_re, chain.dft_im),
+            "b3_long": lambda: kpcr.fused_pc_rdm(beams[..., ps:], chain.pc_long_re,
+                                                 chain.pc_long_im, chain.dft_re, chain.dft_im),
+            "b1_short": lambda: kcfar.cascaded_cfar2d(sum_s, prof.cfar, nc),
+            "b1_long": lambda: kcfar.cascaded_cfar2d(sum_l, prof.cfar, nc),
+            "extract": lambda: (extract_detections(f_s, sum_s, 32),
+                                extract_detections(f_l, sum_l, 32)),
+            "measure": lambda: (
+                motion_parameters(sum_s, diff_s, d_s, r_scale=chain.r_scale_short, **kw),
+                motion_parameters(sum_l, diff_l, d_l, r_scale=chain.r_scale_long, **kw)),
+        }, reps=5)
+        print("G0: stage median ms (CUDA events, one frame): "
+              + " ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f" | sum {sum(ms.values()):.3f} | host .bin parse {parse_ms:.1f} ms/frame "
+              f"({reader_cls.__name__}, wall clock)")
+    return {"launches": launches, "frames_per_s": rate, "stage_ms": ms, "parse_ms": parse_ms}
+
+
 def main() -> int:
     name = phase_device()
     dev = torch.device("cuda:0")
@@ -411,6 +702,15 @@ def main() -> int:
     cfar_stats = phase_cfar(dev, rdm_out)
     del rdm_out
     launches = phase_slice(dev)
+    from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
+
+    chain = G0Chain(device=dev)
+    b3_stats, b3_out = phase_pc_rdm(dev, chain)
+    cfar_g0_stats = phase_cfar_g0(dev, chain, b3_out)
+    del b3_out, chain
+    g0 = phase_g0_slice(dev)
+    b1_launches = {"stream": launches["cascaded_cfar2d"],
+                   "dmx": g0["launches"]["cascaded_cfar2d"]}
     kernels = [
         {"name": "doppler_rdm", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/rdm.cu",
@@ -419,7 +719,13 @@ def main() -> int:
         {"name": "cascaded_cfar2d", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/cfar.cu",
          "replaces": "radar_signal_process_tpu/kernels/cfar_pallas.py:136",
-         "launches": launches["cascaded_cfar2d"], **cfar_stats},
+         "launches": sum(b1_launches.values()), "launches_by_path": b1_launches,
+         **cfar_stats, "max_abs_err": max(cfar_stats["max_abs_err"], cfar_g0_stats["max_abs_err"]),
+         "g0": cfar_g0_stats},
+        {"name": "fused_pc_rdm", "route": "cuda",
+         "source": "radar_signal_process_tpu_torch/kernels/csrc/pc_rdm.cu",
+         "replaces": "radar_signal_process_tpu/kernels/pc_rdm_pallas.py:253",
+         "launches": g0["launches"]["fused_pc_rdm"], **b3_stats},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

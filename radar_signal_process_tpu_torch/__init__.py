@@ -7,16 +7,18 @@ same layout so each module's counterpart is found by name:
   package), the device and float policy, and the chain's constants as
   tensors;
 * ``ops``     — plain PyTorch DSP ops (FFT pulse compression, Doppler
-  processing, notch, CA-CFAR, detection lists, DBF);
+  processing, notches, CA-CFAR, detection lists and measurement, spectral
+  width, DBF, calibration tables);
 * ``kernels`` — hand-written Hopper CUDA kernels (B1 cascaded CFAR, B2 RDM
-  former), each with its plain PyTorch version beside it;
-* ``models``  — the G2 windowed stream: frame processor, detector and the
-  streaming pipeline;
-* ``cli``     — ``python -m radar_signal_process_tpu_torch.cli stream``.
+  former, B3 fused PC + RDM former), each with its plain PyTorch version
+  beside it;
+* ``models``  — the G2 windowed stream (frame processor, detector,
+  streaming pipeline) and the G0 dual-beam chain;
+* ``cli``     — ``python -m radar_signal_process_tpu_torch.cli stream|dmx``.
 
 The port imports ``torch`` and never ``jax``.  Framework-free host code of
-the JAX package (profiles, ``.bin`` ingest, counters) is imported from it
-rather than copied.
+the JAX package (profiles, ``.bin`` ingest, capture writers, calibration
+tables, counters) is imported from it rather than copied.
 """
 
 __version__ = "0.1.0"

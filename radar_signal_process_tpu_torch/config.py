@@ -12,6 +12,7 @@ from radar_signal_process_tpu.config import (  # noqa: F401
     NARROW_PULSE_FIR_TAPS,
     PROFILES,
     CFARConfig,
+    G0ChainConfig,
     MTDConfig,
     RadarProfile,
     matlab_round,

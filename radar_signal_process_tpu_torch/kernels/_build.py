@@ -1,10 +1,12 @@
 """Build the Hopper kernels with nvcc and bind them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds)::
+Every ``csrc/*.cu`` file is compiled by its own nvcc, all started together,
+and the objects are linked into one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds)::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o _build/librsp_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o <src>.o csrc/<src>.cu            # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o _build/librsp_kernels-<hash>.so *.o
 
 The library is named after a hash of the sources and flags (``dlopen``
 caches by path, so a rebuilt library under the old name would pin the stale
@@ -12,8 +14,8 @@ image) and is built on first use into ``kernels/_build/``.  The compile
 writes to a temporary name and ``os.replace``s it into place, so concurrent
 processes never load a half-written file.  No ``--use_fast_math``: division
 and square root stay IEEE (``-prec-div=true``, ``-prec-sqrt=true``).
-``-Xptxas -v``'s register and spill report is kept beside the library as
-``<name>.log``.
+``-Xptxas -v``'s register and spill report of every source is kept beside
+the library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -28,18 +30,18 @@ import threading
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).with_name("_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argument types; each returns an int (a cudaError_t
 # for the launches, a byte count for the shared-memory query)
 _SIGNATURES = {
     "rsp_doppler_rdm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rsp_cascaded_cfar": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "rsp_cascaded_cfar_smem_bytes": (_I, _I, _I),
+    "rsp_fused_pc_rdm": (_P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "rsp_fused_pc_rdm_smem_bytes": (_I,),
 }
 
 _lock = threading.Lock()
@@ -80,17 +82,38 @@ def build() -> pathlib.Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp = out.with_name(f"{out.name}.{tag}.tmp")
+    objs = []
+    try:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            objs.append(obj)
+            jobs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )))
+        logs, failed = [], []
+        for src, proc in jobs:
+            _, err = proc.communicate()
+            logs.append(f"== {src.name}\n{err}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True, check=False,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

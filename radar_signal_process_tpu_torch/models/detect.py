@@ -39,7 +39,11 @@ def detect_rdm(
     (``ChainParams.renotch_mask``), or None for no re-notch.
     """
     if not profile.mtd.fftshift:
-        raise NotImplementedError("unshifted (G0-class) re-notch is not ported yet")
+        raise NotImplementedError(
+            "the detector re-notches shifted (G1/G2-class) spectra only; G0 runs "
+            "through models.g0_chain.G0Chain (cli dmx), and the G1 chain is not "
+            "ported yet"
+        )
     if renotch_mask is not None:
         rdm = rdm * renotch_mask[:, None]
     segments = profile.cfar_segments or ((0, rdm.shape[-1]),)

@@ -43,8 +43,9 @@ def _form_rdm(pc: torch.Tensor, profile: RadarProfile, params) -> torch.Tensor:
     """Compressed pulses (..., n_pulses, n_pts) -> notched magnitude RDM."""
     if not profile.mtd.fftshift:
         raise NotImplementedError(
-            "unshifted (G0-class) spectra are not ported yet; they come with "
-            "the G0 chain"
+            "the frame processor takes shifted (G1/G2-class) spectra only; G0 "
+            "runs through models.g0_chain.G0Chain (cli dmx), and the G1 chain "
+            "is not ported yet"
         )
     n_fft = profile.mtd.fft_length or pc.shape[-2]
     notch = notch_rows(n_fft, profile.mtd.notch_divisor)

@@ -9,6 +9,8 @@ Replicated reference semantics (file:line):
   ``MTD/fun_Process_MTD.m:17-36``;
 * zero-velocity notch: rows ``round(N/2) +- round(N/divisor)`` (1-based)
   set to zero — ``MTD/fun_0v_pressing.m:18-22``;
+* G0 clutter zeroing on the *unshifted* spectrum: rows ``0..n_clutter``
+  and ``N-n_clutter..N-1`` — ``DMX_SignalProcessing_main_xzr.m:463-465``;
 * MTI: lag-30 two-pulse canceller ``x[n+30] - x[n]`` —
   ``MTD/fun_Process_MTI.m:20-22``;
 * iSTC: per-sample gain ``10^(stc/20)`` — ``MTD/fun_iSTC.m:12-15``.
@@ -91,6 +93,19 @@ def zero_velocity_notch(rdm: torch.Tensor, divisor: int = 150) -> torch.Tensor:
     mask = torch.as_tensor(
         notch_mask(rdm.shape[-2], divisor), dtype=rdm.dtype, device=rdm.device
     )
+    return rdm * mask[:, None]
+
+
+def zero_velocity_notch_unshifted(rdm: torch.Tensor, n_clutter: int) -> torch.Tensor:
+    """G0 clutter zeroing on an unshifted spectrum (velocity axis -2).
+
+    Zeroes rows ``[0 : n_clutter+1]`` and ``[N-n_clutter : N]`` (0-based),
+    ``zeroSetFlagMTD = [1:MTD_0_num+1, mtd_FFT_num-MTD_0_num+1 : mtd_FFT_num]``.
+    """
+    n = rdm.shape[-2]
+    idx = np.arange(n)
+    keep = ~((idx <= n_clutter) | (idx >= n - n_clutter))
+    mask = torch.as_tensor(keep, dtype=rdm.dtype, device=rdm.device)
     return rdm * mask[:, None]
 
 

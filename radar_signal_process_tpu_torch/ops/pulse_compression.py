@@ -14,7 +14,11 @@ Replicated reference semantics (file:line):
   of the full convolution — ``MTD/fun_lss_pulse_compression.m:57-65``;
 * narrow pulse: 35-tap FIR, taps normalised by their max, output scaled by
   1/1.2 and advanced by the group delay ``round(17)`` (half away from zero)
-  with a circular shift — ``MTD/fun_lss_pulse_compression.m:31-51``.
+  with a circular shift — ``MTD/fun_lss_pulse_compression.m:31-51``;
+* G0 short pulse: the raw taps, neither normalised, scaled nor shifted —
+  ``DMX_SignalProcessing_main_xzr.m:146,343-344``;
+* G0 long pulse: fixed-length frequency-domain matched filter
+  ``ifft(fft(x, 512) .* matchF2)`` — ``DMX_SignalProcessing_main_xzr.m:348-353``.
 """
 
 from __future__ import annotations
@@ -63,11 +67,13 @@ def matched_filter_spectrum(pulse: np.ndarray, n_echo: int) -> np.ndarray:
     return np.fft.fft(h, fft_len(len(pulse) + n_echo - 1))
 
 
-def fir_spectrum(n_echo: int) -> np.ndarray:
-    """FFT of the narrow-pulse FIR taps, normalised by their max, for
-    ``n_echo`` samples."""
+def fir_spectrum(n_echo: int, normalize: bool = True) -> np.ndarray:
+    """FFT of the narrow-pulse FIR taps for ``n_echo`` samples; the taps are
+    normalised by their max unless ``normalize`` is False (the G0 raw form)."""
     b = np.asarray(NARROW_PULSE_FIR_TAPS, dtype=np.float64)
-    return np.fft.fft(b / b.max(), fft_len(n_echo + len(b) - 1))
+    if normalize:
+        b = b / b.max()
+    return np.fft.fft(b, fft_len(n_echo + len(b) - 1))
 
 
 def matched_filter_compress(
@@ -84,15 +90,34 @@ def matched_filter_compress(
     return full[..., pulse_len - 1 : pulse_len - 1 + m]
 
 
-def fir_compress(echo: torch.Tensor, spectrum: torch.Tensor, n_taps: int) -> torch.Tensor:
-    """Causal FIR filtering along the last axis, ``filter(b, 1, x)``, then
-    ``circshift(y, -round(mean(grpdelay(b))))`` and the 1/1.2 scale (the
-    G1/G2 form; the G0 chain's raw form comes with that chain)."""
+def fir_compress(
+    echo: torch.Tensor,
+    spectrum: torch.Tensor,
+    n_taps: int,
+    post_scale: float = 1.0 / 1.2,
+    roll_group_delay: bool = True,
+) -> torch.Tensor:
+    """Causal FIR filtering along the last axis, ``filter(b, 1, x)``.
+
+    ``spectrum`` is :func:`fir_spectrum` (complex64, on the echo's device).
+    The G1/G2 form then advances by the group delay,
+    ``circshift(y, -round(mean(grpdelay(b))))``, and scales by 1/1.2; the G0
+    form (``post_scale=1.0, roll_group_delay=False`` with raw taps) does
+    neither.
+    """
     m = echo.shape[-1]
     nfft = spectrum.shape[-1]
-    causal = torch.fft.ifft(torch.fft.fft(echo, nfft, dim=-1) * spectrum, dim=-1)
-    causal = torch.roll(causal[..., :m], -matlab_round((n_taps - 1) / 2), dims=-1)
-    return causal * (1.0 / 1.2)
+    causal = torch.fft.ifft(torch.fft.fft(echo, nfft, dim=-1) * spectrum, dim=-1)[..., :m]
+    if roll_group_delay:
+        causal = torch.roll(causal, -matlab_round((n_taps - 1) / 2), dims=-1)
+    return causal * post_scale
+
+
+def fixed_length_matched_filter(echo: torch.Tensor, match_spec: torch.Tensor) -> torch.Tensor:
+    """G0 long-pulse matched filter ``ifft(fft(x, L) * match_spec)`` with
+    ``L = len(match_spec)``: ``fft(x, L)`` zero-pads or truncates ``x``."""
+    n = match_spec.shape[-1]
+    return torch.fft.ifft(torch.fft.fft(echo, n, dim=-1) * match_spec, dim=-1)
 
 
 def segment_filters(

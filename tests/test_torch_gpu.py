@@ -16,13 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from radar_signal_process_tpu_torch.config import G2_PROFILE, CFARConfig
+from radar_signal_process_tpu_torch.config import G0_PROFILE, G2_PROFILE, CFARConfig
 from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+from radar_signal_process_tpu_torch.kernels import pc_rdm as kpcr
 from radar_signal_process_tpu_torch.kernels import rdm as krdm
 from radar_signal_process_tpu_torch.ops import cfar as tcfar
 from radar_signal_process_tpu_torch.ops.windows import make_window
 
 RTOL, ATOL = 2e-4, 2e-3
+B3_PEAK_ATOL = 2e-5   # B3: |kernel - plain| <= 2e-5 * peak + RTOL * |plain|
 
 
 @pytest.fixture
@@ -219,3 +221,142 @@ def test_stream_on_card_matches_cpu(tmp_path, rng, cuda_device):
         torch.testing.assert_close(g_rdm / scale, w_rdm / scale, rtol=RTOL, atol=2e-5)
         f, _, _ = detector(g_rdm)
         assert torch.equal(f, g_flags) and g_hits == int(f.sum())
+
+
+# ------------------------------------------------------------------------ B3
+# name -> (batch shape, n_prt, n_in, n_out, n_fft, DFT shift, columns around
+# the segment in the row it is read from)
+B3_CASES = {
+    "g0-short": ((2,), 1536, 62, 62, 2048, False, (0, 504)),
+    "g0-long": ((2,), 1536, 504, 512, 2048, False, (62, 0)),
+    "n_in-100": ((1,), 200, 100, 100, 256, True, (0, 0)),
+    "ragged-out": ((2,), 64, 100, 37, 128, False, (5, 3)),
+    "batched-4d": ((2, 3), 48, 62, 70, 96, True, (0, 0)),
+    "odd-prt": ((1,), 37, 30, 17, 64, True, (1, 0)),
+}
+
+
+def _b3_inputs(rng, device, batch, n_prt, n_in, n_out, n_fft, shift, around):
+    lo, hi = around
+    rows = _pc(rng, batch + (n_prt, lo + n_in + hi), device)
+    echo = rows[..., lo : lo + n_in]                      # read in place
+    m = rng.standard_normal((n_in, n_out)) + 1j * rng.standard_normal((n_in, n_out))
+    m_re, m_im = (torch.from_numpy(p.astype(np.float32)).to(device) for p in (m.real, m.imag))
+    w_re, w_im = _planes(make_window("hamming", n_prt), device, n_fft, shift)
+    return echo, m_re, m_im, w_re, w_im
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(B3_CASES))
+def test_fused_pc_rdm_kernel_matches_plain(rng, cuda_device, case):
+    args = _b3_inputs(rng, cuda_device, *B3_CASES[case])
+    before = kpcr.fused_pc_rdm.launches
+    got = kpcr.fused_pc_rdm(*args)
+    want = kpcr.fused_pc_rdm_plain(*args)
+    torch.cuda.synchronize()
+    assert kpcr.fused_pc_rdm.launches == before + 1
+    assert got.shape == want.shape
+    peak = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=B3_PEAK_ATOL * peak)
+
+
+@pytest.mark.gpu
+def test_fused_pc_rdm_kernel_rejects_bad_inputs(rng, cuda_device):
+    echo, m_re, m_im, w_re, w_im = _b3_inputs(rng, cuda_device, (2, 3), 16, 10, 7, 32, False,
+                                              (0, 0))
+    with pytest.raises(ValueError, match="complex64"):
+        kpcr.fused_pc_rdm(echo.to(torch.complex128), m_re, m_im, w_re, w_im)
+    with pytest.raises(ValueError, match="unit fast-time stride"):
+        t = echo.transpose(-1, -2).contiguous().transpose(-1, -2)
+        kpcr.fused_pc_rdm(t, m_re, m_im, w_re, w_im)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        kpcr.fused_pc_rdm(echo, m_re.double(), m_im, w_re, w_im)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        kpcr.fused_pc_rdm(echo, m_re, m_im, w_re.cpu(), w_im)
+    with pytest.raises(ValueError, match="merge"):
+        kpcr.fused_pc_rdm(echo.transpose(0, 1), m_re, m_im, w_re, w_im)
+    with pytest.raises(ValueError, match="batch 0"):
+        kpcr.fused_pc_rdm(echo[:0], m_re, m_im, w_re, w_im)
+    with pytest.raises(ValueError, match="DFT planes"):
+        kpcr.fused_pc_rdm(echo[..., :15, :], m_re, m_im, w_re, w_im)
+    long_echo, *planes = _b3_inputs(rng, cuda_device, (1,), 2000, 4, 3, 16, False, (0, 0))
+    with pytest.raises(ValueError, match="shared memory"):
+        kpcr.fused_pc_rdm(long_echo, *planes)
+
+
+# ----------------------------------------------------------------- B1 at G0
+def _g0_rdm(rng, nr, n_clutter=6):
+    """2048-row unshifted RDM: clutter rows zero at both ends, ties, hits in
+    the edge columns, and one cell exactly on its threshold."""
+    rdm = _rdm(rng, nv=2048, nr=nr, hits=80)
+    rdm[: n_clutter + 1] = 0.0
+    rdm[2048 - n_clutter :] = 0.0
+    for r in (0, 1, nr - 2, nr - 1):
+        rdm[int(rng.integers(20, 2000)), r] += 40.0
+    rdm[500, 10:12] = 50.0
+    block = _on_threshold(rng)[:40, :40]
+    rdm[900:940, nr - 40 :] = block
+    return rdm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nr", [62, 512])
+@pytest.mark.parametrize("cfg", [G0_PROFILE.cfar, CFARConfig(threshold=5.0, range_extend_cells=2)],
+                         ids=["g0-cfar", "E2"])
+def test_cascaded_cfar2d_kernel_bit_equal_at_g0(rng, cuda_device, nr, cfg):
+    rdm = torch.from_numpy(_g0_rdm(rng, nr)).to(cuda_device)
+    before = kcfar.cascaded_cfar2d.launches
+    got_f, got_v = kcfar.cascaded_cfar2d(rdm, cfg, 6)
+    want_f, want_v = tcfar.cascaded_cfar2d(rdm, cfg, 6)
+    assert kcfar.cascaded_cfar2d.launches == before + 1
+    assert int(want_f.sum()) > 0
+    assert torch.equal(got_f, want_f) and torch.equal(got_v, want_v)
+
+
+# ------------------------------------------------------------------- G0 chain
+@pytest.mark.gpu
+def test_g0_chain_on_card_matches_cpu(tmp_path, rng, cuda_device):
+    """A G1 capture through the G0 chain on the card (B3 + B1) and on the CPU
+    (plain versions): RDMs agree, the card's flags equal the plain CFAR on
+    the card's RDM, and both measure the target."""
+    from radar_signal_process_tpu_torch.config import G0ChainConfig
+    from radar_signal_process_tpu_torch.ingest import G1FrameReader
+    from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
+    from radar_signal_process_tpu_torch.ops.waveforms import reference_pulses
+    from radar_signal_process_tpu_torch.sim import write_g1_capture
+
+    prof, cfg = G0_PROFILE, G0ChainConfig()
+    n = prof.prt_per_frame
+    fd = -60 * prof.prf / cfg.mtd_fft_length
+    _, p_long = reference_pulses(prof)
+    ramp = np.exp(1j * 2 * np.pi * fd * np.arange(n) * prof.prt)
+    base = np.zeros((n, prof.point_prt), complex)
+    s1 = prof.segment_starts[1]
+    base[:, s1 + 100 : s1 + 100 + len(p_long)] += ramp[:, None] * p_long[None, :]
+    noise = rng.standard_normal((2, n, prof.point_prt)) * 2.0
+    left = np.round(5000 * base.real + noise[0]) + 1j * np.round(5000 * base.imag)
+    right = np.round(4000 * base.real + noise[1]) + 1j * np.round(4000 * base.imag)
+    write_g1_capture(str(tmp_path), left[None], right[None], freq_index=5, beam_pos=2)
+    fl, fr, _, _ = G1FrameReader(str(tmp_path), n, prof.point_prt).read_frame(1)
+
+    launches = (kpcr.fused_pc_rdm.launches, kcfar.cascaded_cfar2d.launches)
+    got = G0Chain(prof, cfg, 5, 2, device=cuda_device).process_frame(fl, fr)
+    torch.cuda.synchronize()
+    assert kpcr.fused_pc_rdm.launches == launches[0] + 2
+    assert kcfar.cascaded_cfar2d.launches == launches[1] + 2
+    cpu = G0Chain(prof, cfg, 5, 2, device="cpu")
+    want = cpu.process_frame(fl, fr)
+    for seg in ("short", "long"):
+        g, w = getattr(got, f"rdm_sum_{seg}").cpu(), getattr(want, f"rdm_sum_{seg}")
+        peak = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=B3_PEAK_ATOL * peak)
+        f, v = tcfar.cascaded_cfar2d(g, prof.cfar, cpu.n_clutter)
+        assert torch.equal(f, getattr(got, f"flags_{seg}").cpu())
+        assert torch.equal(v, getattr(got, f"vflags_{seg}").cpu())
+    v_true = -cpu.wavelength * fd / 2.0
+    r_true = 100 * prof.delta_r + cfg.r_sys_err_long - cfg.r_measure_err_long
+    for res in (got, want):
+        m = res.measurements_long
+        assert bool(m.valid[0])
+        assert abs(float(m.velocity_ms[0]) - v_true) < 0.3
+        assert abs(float(m.range_m[0]) - r_true) < 2 * prof.delta_r

@@ -99,6 +99,64 @@ def test_capture_roundtrip_with_jax_unimportable():
     assert proc.stdout.strip().endswith("capture ok")
 
 
+_G0_JAX_FREE = r"""
+import sys
+sys.modules["jax"] = None
+import contextlib
+import importlib
+import io
+import json
+import pkgutil
+import tempfile
+
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+import chip_smoke  # noqa: F401
+import radar_signal_process_tpu_torch as port
+
+for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(info.name)
+from radar_signal_process_tpu_torch import cli
+from radar_signal_process_tpu_torch.config import G0_PROFILE as prof
+from radar_signal_process_tpu_torch.config import G0ChainConfig
+from radar_signal_process_tpu_torch.ops.waveforms import reference_pulses
+from radar_signal_process_tpu_torch.sim import write_g1_capture
+
+n = prof.prt_per_frame
+fd = -60 * prof.prf / G0ChainConfig().mtd_fft_length
+_, p_long = reference_pulses(prof)
+ramp = np.exp(1j * 2 * np.pi * fd * np.arange(n) * prof.prt)
+base = np.zeros((n, prof.point_prt), complex)
+s1 = prof.segment_starts[1]
+base[:, s1 + 100 : s1 + 100 + len(p_long)] += ramp[:, None] * p_long[None, :]
+left = np.round(5000 * base.real) + 1j * np.round(5000 * base.imag)
+with tempfile.TemporaryDirectory() as root:
+    write_g1_capture(root, left[None], 0.8 * left[None], freq_index=5, beam_pos=2)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(["dmx", "--input", root, "--device", "cpu", "--no-native"]) == 0
+frame = json.loads(out.getvalue())["frames"][0]
+assert (frame["freq_index"], frame["beam_pos"]) == (5, 2)
+assert any(abs(r - 1851.17) < 24 for r in frame["long"]["range_m"]), frame["long"]
+assert sys.modules["jax"] is None
+assert not [m for m in sys.modules if m.startswith("jax.")]
+print("g0 jax-free ok")
+"""
+
+
+def test_g0_slice_runs_with_jax_unimportable():
+    """Every module of the port and chip_smoke.py import without jax, and
+    ``cli dmx`` runs a G1 capture written by the port's own writer."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _G0_JAX_FREE], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("g0 jax-free ok")
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches the JAX package's host code only through the
     port's own modules, and loads no file of it by path."""

@@ -18,6 +18,7 @@ from radar_signal_process_tpu.ops import cfar as jcfar
 from radar_signal_process_tpu.ops import mtd as jmtd
 from radar_signal_process_tpu_torch.kernels import _build
 from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+from radar_signal_process_tpu_torch.kernels import pc_rdm as kpcr
 from radar_signal_process_tpu_torch.kernels import rdm as krdm
 from radar_signal_process_tpu_torch.ops import cfar as tcfar
 from radar_signal_process_tpu_torch.ops import mtd as tmtd
@@ -187,7 +188,7 @@ def test_library_path_is_content_addressed():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("librsp_kernels-") and path.suffix == ".so"
     assert path == _build.library_path()
-    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["cfar.cu", "rdm.cu"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["cfar.cu", "pc_rdm.cu", "rdm.cu"]
 
 
 def test_wrappers_reject_unsupported_devices(rng):
@@ -197,3 +198,6 @@ def test_wrappers_reject_unsupported_devices(rng):
         krdm.doppler_rdm(pc, w_re.to("meta"), w_im.to("meta"), (0, -1))
     with pytest.raises(ValueError, match="unsupported device"):
         kcfar.cascaded_cfar2d(torch.zeros(1, 40, 40, device="meta"), CFARConfig(), 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        m = torch.zeros(8, 5, device="meta")
+        kpcr.fused_pc_rdm(pc, m, m, w_re.to("meta"), w_im.to("meta"))
