@@ -12,7 +12,10 @@ Phases, each printing one line (or a few), any failure exits non-zero:
 2. build   — compiles ``kernels/csrc/*.cu`` with nvcc for sm_90a, one nvcc
    per source, all started together; prints ptxas registers and spills;
 3. B2      — the RDM-former kernel against its plain matmul version (and the
-   cuFFT form) at G2 geometry, 52 x 332 x 3404, f32 tolerance;
+   cuFFT form) at G2 geometry, 52 x 332 x 3404, f32 tolerance; both the
+   kernel's and the plain version's max error against the product taken in
+   complex128 on the card, as a share of the peak (the kernel's at most
+   1e-5);
 4. B1      — the cascaded-CFAR kernel against its plain version, bit for bit,
    on the B2 output (three G2 segments, after the divisor-20 re-notch) and
    on a crafted RDM (notched rows, ties, edge columns, a cell exactly on the
@@ -27,6 +30,7 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    complex64 matmuls) and its cuFFT form at G0 geometry, both pulse
    segments of two beams (2 x 1536 x 62 -> 2 x 2048 x 62 and
    2 x 1536 x 504 -> 2 x 2048 x 512), each read in place from the beams;
+   and both against the complex128 product, as for B2;
 7. B1 (G0) — the CFAR kernel bit for bit against its plain version at G0
    geometry (2048 x 62 and 2048 x 512, one segment, n_clutter 6), on B3's
    summed, notched output and on crafted RDMs;
@@ -59,6 +63,7 @@ import torch
 SEED = 20250817
 G2_BATCH, G2_PULSES, G2_RANGE = 52, 332, 3404
 RDM_RTOL, RDM_ATOL = 2e-4, 2e-3   # the repo's f32 RDM tolerance
+C128_PEAK = 1e-5                  # max |kernel - complex128 product| / peak
 TARGET_V, TARGET_R = -5.7, 320.0  # m/s, m: the known-good G2 drive
 G0_BATCH = 2                      # the two monopulse beams
 G0_FREQ_INDEX = (5, 2, 9, 5)      # per-frame frequency index of the G0 capture
@@ -87,6 +92,11 @@ def cuda_ms(fns: dict, reps: int = REPS) -> dict:
             b.synchronize()
             times[k].append(a.elapsed_time(b))
     return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def c128_error(got: torch.Tensor, exact: torch.Tensor) -> float:
+    """max |got - exact| as a share of the peak of ``exact`` (float64)."""
+    return float((got.double() - exact).abs().max() / exact.abs().max())
 
 
 def phase_device() -> str:
@@ -166,6 +176,16 @@ def phase_rdm(dev) -> tuple[dict, torch.Tensor]:
     ok_fft = bool(((got - fft).abs() <= RDM_ATOL + RDM_RTOL * fft.abs()).all())
     if not (notch[0] == 163 and notch[1] == 167 and (got[:, 163:168] == 0).all()):
         fail(f"B2: notch rows {notch} not zeroed")
+    exact = torch.matmul(torch.complex(params.dft_re, params.dft_im).to(torch.complex128),
+                         pc.to(torch.complex128)).abs()
+    exact[:, notch[0] : notch[1] + 1] = 0.0
+    err_c128, plain_c128 = c128_error(got, exact), c128_error(want, exact)
+    del exact
+    print(f"B2 vs complex128 product: max error / peak kernel {err_c128:.3e} "
+          f"plain {plain_c128:.3e} (kernel <= {C128_PEAK}) -> "
+          f"{'ok' if err_c128 <= C128_PEAK else 'FAIL'}")
+    if err_c128 > C128_PEAK:
+        fail("B2: kernel error against the complex128 product above 1e-5 of the peak")
     ms = cuda_ms({"kernel": run_kernel, "plain": run_plain, "cufft": run_fft})
     print(f"B2 doppler_rdm {shape}: max_abs_err {max_abs:.3e} max_rel_err "
           f"{max_rel:.3e} vs plain (rtol {RDM_RTOL}, atol {RDM_ATOL}) -> "
@@ -176,7 +196,8 @@ def phase_rdm(dev) -> tuple[dict, torch.Tensor]:
         fail("B2: kernel disagrees with its plain version")
     del want, fft, pc
     return {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": ms["plain"],
-            "cufft_ms": ms["cufft"]}, got
+            "cufft_ms": ms["cufft"], "error_vs_c128": err_c128,
+            "plain_error_vs_c128": plain_c128}, got
 
 
 def _on_threshold_value() -> tuple[np.float32, np.float32]:
@@ -452,7 +473,7 @@ def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
         "long": (beams[..., ps:], chain.pc_long_re, chain.pc_long_im),
     }
     ffts = chain.front_fft(beams)
-    outs, fns, errs = [], {}, {}
+    outs, fns, errs, c128_errs = [], {}, {}, {}
     ok = True
     for (name, (seg, m_re, m_im)), fft in zip(segments.items(), ffts):
         def run_kernel(seg=seg, m_re=m_re, m_im=m_im):
@@ -469,7 +490,13 @@ def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
         seg_ok = bool(((got - want).abs() <= 2e-5 * peak + 2e-4 * want.abs()).all())
         fft_abs, _, fft_peak = rdm_error(got, fft)
         fft_ok = fft_abs <= 5e-5 * fft_peak
-        ok = ok and seg_ok and fft_ok
+        c128 = torch.complex128
+        exact = torch.matmul(
+            torch.complex(chain.dft_re, chain.dft_im).to(c128),
+            torch.matmul(seg.to(c128), torch.complex(m_re, m_im).to(c128))).abs()
+        c128_errs[name] = (c128_error(got, exact), c128_error(want, exact))
+        del exact
+        ok = ok and seg_ok and fft_ok and c128_errs[name][0] <= C128_PEAK
         errs[name] = (max_abs, max_rel, peak, fft_abs / fft_peak, seg_ok, fft_ok)
         fns[f"{name}_kernel"], fns[f"{name}_plain"] = run_kernel, run_plain
         outs.append(got)
@@ -482,16 +509,22 @@ def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
               f"{seg.stride(-2)}) -> {tuple(outs[0 if name == 'short' else 1].shape)}: "
               f"max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} (peak {peak:.3e}) vs plain "
               f"(2e-5*peak + 2e-4*|want|) -> {'ok' if seg_ok else 'FAIL'}; vs cuFFT "
-              f"{fft_rel:.3e}*peak (<= 5e-5) -> {'ok' if fft_ok else 'FAIL'}; median ms "
+              f"{fft_rel:.3e}*peak (<= 5e-5) -> {'ok' if fft_ok else 'FAIL'}; vs complex128 "
+              f"product: max error / peak kernel {c128_errs[name][0]:.3e} plain "
+              f"{c128_errs[name][1]:.3e} (kernel <= {C128_PEAK}) -> "
+              f"{'ok' if c128_errs[name][0] <= C128_PEAK else 'FAIL'}; median ms "
               f"kernel {ms[f'{name}_kernel']:.3f} plain {ms[f'{name}_plain']:.3f}")
     kernel_ms = ms["short_kernel"] + ms["long_kernel"]
     plain_ms = ms["short_plain"] + ms["long_plain"]
     print(f"B3 per frame (both segments): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"cuFFT form {ms['cufft_both']:.3f} ms (median of {REPS}, CUDA events)")
     if not ok:
-        fail("B3: kernel disagrees with its plain version or its cuFFT form")
+        fail("B3: kernel disagrees with its plain version, its cuFFT form or the "
+             "complex128 product")
     return {"max_abs_err": max(e[0] for e in errs.values()),
             "max_rel_err": max(e[1] for e in errs.values()),
+            "error_vs_c128": max(e[0] for e in c128_errs.values()),
+            "plain_error_vs_c128": max(e[1] for e in c128_errs.values()),
             "ms": kernel_ms, "plain_ms": plain_ms, "cufft_ms": ms["cufft_both"],
             "ms_by_segment": {k: ms[f"{k}_kernel"] for k in segments},
             "plain_ms_by_segment": {k: ms[f"{k}_plain"] for k in segments}}, tuple(outs)

@@ -11,311 +11,428 @@
 // per-row PC operator (the 512-point matched filter as a 504 x 512 matrix, or
 // the 35-tap raw FIR as a 62 x 62 Toeplitz matrix) and W the windowed,
 // zero-padded (n_fft, n_prt) DFT plane, each as float32 re/im planes built on
-// the host in float64.
+// the host in float64.  P never reaches device memory.
 //
-// What defines it against B2 after a separate PC: a block owns a 16-column
-// range tile and forms its compressed tile P = X M_j in shared memory once;
-// every Doppler row of the block reads P from there, so P never reaches
-// device memory.
-//
-// What bounds it on an H100.  At G0 one frame is ~35 GFLOP of FP32 complex
-// MAC work (long PC 6.3, long Doppler 25.8, short 3.2) against ~40 MB of
-// compulsory traffic: FP32 issue on the CUDA cores bounds it (no TF32, no
-// tensor cores: the reference holds the RDM at full f32 precision).  The
-// simple design is bounded by shared memory instead:
-//   * one P column at n_prt = 1536 is 12 KiB (re + im); a 16-column tile is
-//     192 KiB, which with the 32 KiB W stage fills 224 KiB of the 227 KB a
-//     block may take, so one block runs per SM;
-//   * long segment: 512 / 16 = 32 range tiles x batch 2 = 64 blocks for 132
-//     SMs.  The Doppler axis is therefore split over grid.z: the launcher
-//     takes floor(SMs / (tiles x batch)) splits, at most the number of
-//     256-row Doppler passes: 2 for the long segment (128 blocks), 8 for the
-//     short one (64 blocks).  Each split recomputes its P tile, ~20% more
-//     FLOP per extra split on the long segment (P is 6.3 of its 32 GFLOP),
-//     which buys twice the SMs.  Thread-block clusters sharing P through
-//     distributed shared memory, TMA staging of W and wgmma are later work.
-//   * W (2048 x 1536 x 2 planes, 25 MB) is read by every block from L2; at
-//     16 columns a block does 64 FMA per W element it loads.
-// Phase 1 (P): 128 P rows x 16 columns per pass, 16-sample stages of X and M
-// in shared memory, 8 complex outputs per thread.  Phase 2 (Doppler): 256
-// Doppler rows x 16 columns per pass, 16-pulse stages of W (transposed, so a
-// thread reads its 8 rows as two float4s), 8 x 2 complex outputs per thread.
-// Both phases prefetch the next stage into registers while computing the
-// current one.  Ragged edges (62 and 504 are no tile multiples) are masked:
-// loads past an edge read zero, stores past it are skipped.  P rows are
-// padded to a multiple of 16 with zeros, and W columns past n_prt read zero.
+// What bounds it on an H100.  At G0 one frame is ~35 GFLOP of complex MAC
+// work (long PC 6.3, long Doppler 25.8, short 3.2) against ~40 MB of
+// compulsory traffic, so arithmetic bounds it.  Both products run on the
+// tensor cores at FP32 accuracy through the 3xTF32 split of cgemm_3xtf32.cuh:
+// 12 mma.sync per complex 16 x 8 x 8 step, which the card issues at best one
+// per ~6.7 cycles per SM sub-partition.  Two things keep a kernel from that
+// rate: where P lives (a P column at n_prt = 1536 is 12 KiB, so a range tile
+// of P fills an SM's shared memory and leaves too few warps), and the
+// instructions issued beside the mma's (operand splits, ring addressing).
+// The design:
+//   * P shared across a thread-block cluster of 16.  A cluster owns one range
+//     tile of TJ columns of one beam.  Block `rank` forms the P rows
+//     [rank * rows_per, (rank + 1) * rows_per) of the tile (phase 1) and keeps
+//     them in its own shared memory.  After cluster.sync() each block
+//     contracts its Doppler passes (128 rows each: rank, rank + 16, ...)
+//     against the whole of P (phase 2), reading the peers' slices through
+//     distributed shared memory.  A second cluster barrier keeps every block
+//     alive until no peer reads its P.  No P row is formed twice, and P costs
+//     each block 1/16 of the tile: 24 KiB at TJ = 32, so two blocks (16
+//     warps) share an SM.  A cluster of 16 needs the non-portable size.
+//   * Two tile widths, picked by the launcher: TJ = 32 (the long segment:
+//     2 beams x 16 tiles x 16 = 512 blocks) and TJ = 16 where 32-column
+//     tiles would leave SMs idle (the short segment: 2 x 4 x 16 = 128).
+//   * One pipelined main loop serves both phases: 8 warps, each owning 16
+//     rows of A, 16-deep K stages in a 3-stage ring.  A (X in phase 1, W in
+//     phase 2) comes by cp.async, 16-byte copies where the addresses and
+//     strides allow (the G0 segments do: row stride 566, column offset 62),
+//     else 8 bytes per X sample or 4 per W value.  B (M in phase 1, the peer's
+//     P in phase 2) is fetched into registers a stage ahead, split into TF32
+//     hi/lo once and stored beside A, so the 8 warps that read it load ready
+//     fragments.  Loader positions advance as counters: no division or
+//     modulo by a runtime value runs per stage.  The mma's of a step go out
+//     term by term across the warp's tiles (cmma_n), and partial sums are
+//     flushed once per 16-deep stage.  The magnitude is the epilogue.
+//   * Ragged edges (62 and 504 are no tile multiples) read zero through the
+//     copies' source size and the B fetch's bounds; P rows past n_prt are
+//     zero and W columns past n_prt read zero.  Stage pitches are padded so
+//     fragment loads are free of bank conflicts.
+// What bounds it now (an H100 at 700 W): the long segment runs at ~38
+// FP32-equivalent TFLOP/s.  The card places at most 14 clusters of 16 at a
+// time (112 of 132 SMs), so its 32 clusters take three waves for 2.3 waves
+// of work; inside a wave the mma's issue at ~12 cycles each, behind the W
+// operand's split (each W value is split once per block) and the flush adds.
+// Smaller clusters place better but hold a larger P slice each: clusters of
+// 4 with one block per SM fit 30 at a time, so the short segment's 32 took
+// two waves and ran slower than clusters of 16.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "cgemm_3xtf32.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTJ = 16;                 // range columns per block (P tile width)
-// phase 1: P = X M
-constexpr int kPR = 128;                // P rows per pass
-constexpr int kBI = 16;                 // fast-time samples per X/M stage
-constexpr int kXPad = kBI + 1;          // X stage row pitch (float2), conflict-free
-constexpr int kXPerThread = kPR * kBI / kThreads;   // 8
-constexpr int kPCols = kTJ / 2;         // P columns per thread (two threads per row)
-// phase 2: |W P|
-constexpr int kBM = 256;                // Doppler rows per pass (one staged W row per thread)
-constexpr int kBK = 16;                 // pulses per W stage
-constexpr int kTM = 8;                  // Doppler rows per thread
-constexpr int kTN = 2;                  // columns per thread
-constexpr int kColThreads = kTJ / kTN;  // 8
-constexpr int kStageFloats = 2 * kBK * kBM;         // W re + im stage: 32 KiB
+using namespace rsp;
+namespace cg = cooperative_groups;
 
-static_assert(kBI * kTJ == kThreads, "one M element per thread per stage");
-static_assert(kPR * 2 == kThreads, "two threads per P row");
-static_assert((kBM / kTM) * kColThreads == kThreads, "phase-2 thread tiling");
-static_assert(kBM == kThreads, "one staged W row per thread");
-static_assert(2 * (kPR * kXPad + kBI * kTJ) <= kStageFloats, "X/M stage fits the W stage");
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = kWarps * 16;   // A rows per pass: P rows (phase 1), Doppler rows (phase 2)
+constexpr int kBK = 16;              // K per stage: samples (phase 1), pulses (phase 2)
+constexpr int kStages = 3;
+constexpr int kCluster = 16;
+constexpr int kLdA = kBK + 4;        // A stage pitch: float2 of X, or floats of each W plane
+constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory a block may use
 
-__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
+static_assert(kLdA % 32 == 20, "conflict-free A fragments");
 
-__device__ __forceinline__ void cmac(float& re, float& im, float ar, float ai, float br,
-                                     float bi) {
-  re = fmaf(ar, br, re);
-  re = fmaf(-ai, bi, re);
-  im = fmaf(ar, bi, im);
-  im = fmaf(ai, br, im);
+template <int TJ>
+struct Tile {
+  static constexpr int kNT = TJ / 8;                 // n8 tiles per warp
+  static constexpr int kLdB = TJ + 2;                // split B plane pitch (uint4)
+  static constexpr int kAFloats = 2 * kRows * kLdA;  // X [kRows][kLdA] float2 | W re, im planes
+  // B: per 8-deep K-step, hi and lo planes [4][kLdB] uint4 (put_b_quads)
+  static constexpr int kStageFloats = kAFloats + (kBK / 8) * 2 * 4 * kLdB * 4;
+  static constexpr int kItems = kBK / 2 * TJ;        // B (row pair, column) items per stage
+  static_assert(TJ % 8 == 0 && kItems <= kThreads, "tile width");
+  static_assert(kLdB % 8 == 2 && kStageFloats % 4 == 0, "conflict-free, 16-byte aligned B");
+
+  // the ring, then this block's P slice [rows_per][TJ] float2
+  static size_t smem_bytes(int rows_per) {
+    return sizeof(float) * (static_cast<size_t>(kStages) * kStageFloats +
+                            static_cast<size_t>(rows_per) * TJ * 2);
+  }
+};
+
+// One block's passes of a complex GEMM through the ring: `n_pass` passes of
+// `n_k` K-stages; warp w owns A rows [16 w, 16 w + 16) of a pass and all TJ
+// columns.  load_a(pass, k, slot) issues the cp.async copies of a stage;
+// fetch_b(k) loads this thread's B item of a stage into registers,
+// put_b(slot) splits and stores it; frag_a(a, stage, k8) loads this warp's
+// A fragment; busy(pass) says whether this warp has rows in the pass
+// (warp-uniform); done(pass, re, im) is the epilogue of a pass.
+template <int TJ, class LoadA, class FetchB, class PutB, class FragAFn, class Busy, class Done>
+__device__ __forceinline__ void run_passes(float* smem, int n_pass, int n_k, LoadA load_a,
+                                           FetchB fetch_b, PutB put_b, FragAFn frag_a,
+                                           Busy busy, Done done) {
+  using T = Tile<TJ>;
+  constexpr int kNT = T::kNT;
+  const int lane = threadIdx.x & 31;
+  const int total = n_pass * n_k;
+
+  int la_pass = 0, la_k = 0, la_slot = 0;  // the next stage to load
+  auto load_next = [&]() {
+    load_a(la_pass, la_k, la_slot);
+    if (++la_k == n_k) la_k = 0, ++la_pass;
+    if (++la_slot == kStages) la_slot = 0;
+  };
+  int fb_k = 0;                            // the next B stage to fetch
+  auto fetch_next = [&]() {
+    fetch_b(fb_k);
+    if (++fb_k == n_k) fb_k = 0;
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) load_next();
+    cp_async_commit();
+  }
+  if (total > 0) {
+    fetch_next();
+    put_b(0);
+  }
+  if (total > 1) fetch_next();
+
+  float acc_re[kNT][4], acc_im[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_re[j][e] = acc_im[j][e] = 0.f;
+
+  int pass = 0, k = 0, slot = 0;
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();               // stage s is in its slot; slot s - 1 is free
+    if (s + kStages - 1 < total) load_next();
+    cp_async_commit();
+    const int slot1 = slot + 1 == kStages ? 0 : slot + 1;
+    if (s + 1 < total) put_b(slot1);  // read at s + 1, after its barrier
+    if (s + 2 < total) fetch_next();  // in flight while stage s computes
+
+    if (busy(pass)) {
+      const float* stage = smem + slot * T::kStageFloats;
+      const uint4* s_b = reinterpret_cast<const uint4*>(stage + T::kAFloats);
+      float pr[kNT][4], pi[kNT][4];  // partial sums of the stage
+#pragma unroll
+      for (int k8 = 0; k8 < kBK; k8 += 8) {
+        FragB bf[kNT];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          load_b_quads(bf[j], s_b + k8 * T::kLdB + j * 8, T::kLdB, lane);
+        FragA a;
+        frag_a(a, stage, k8);
+        if (k8 == 0) cmma_n<true>(pr, pi, a, bf);
+        else cmma_n<false>(pr, pi, a, bf);
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) flush(acc_re[j], acc_im[j], pr[j], pi[j]);
+    }
+    if (++k == n_k) {              // the pass is complete
+      done(pass, acc_re, acc_im);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_re[j][e] = acc_im[j][e] = 0.f;
+      k = 0;
+      ++pass;
+    }
+    slot = slot1;
+  }
+  cp_async_wait<0>();
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+template <int TJ>
+__global__ void __launch_bounds__(kThreads, 2)
 fused_pc_rdm_kernel(const float2* __restrict__ x, long long sb, int ldx,
                     const float* __restrict__ m_re, const float* __restrict__ m_im,
                     const float* __restrict__ w_re, const float* __restrict__ w_im,
                     float* __restrict__ out, int n_prt, int n_in, int n_out, int n_fft,
-                    int n_split, int w_vec) {
+                    int rows_per, int x_vec, int w_vec) {
+  using T = Tile<TJ>;
+  constexpr int kNT = T::kNT;
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
-  float* stage = smem;                                           // shared by both phases
-  float2* s_p = reinterpret_cast<float2*>(smem + kStageFloats);  // [n_prt_pad][kTJ]
+  float2* s_p = reinterpret_cast<float2*>(smem + kStages * T::kStageFloats);  // [rows_per][TJ]
 
   const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * kTJ;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int j0 = (blockIdx.x / kCluster) * TJ;
   const int b = blockIdx.y;
-  const int split = blockIdx.z;
   const int n_prt_pad = round_up(n_prt, kBK);
-  const float2* xb = x + static_cast<size_t>(b) * sb;
+  const int p_lo = rank * rows_per;                       // this block's P rows
+  const int n_rows = min(rows_per, n_prt_pad - p_lo);     // may be <= 0
 
-  // ------------------------------------------------ phase 1: P = X M_j
+  // B: this thread's item of a stage, the values at rows b_k and b_k + 4 of
+  // column b_n, split and stored as one hi and one lo quad (put_b_quads)
+  const int b_n = tid % TJ;
+  const int b_q = tid / TJ;                                // 8-deep step * 4 + row t
+  const int b_k = (b_q >> 2) * 8 + (b_q & 3);
+  const bool b_on = tid < T::kItems;
+  float2 b_reg0 = make_float2(0.f, 0.f), b_reg1 = make_float2(0.f, 0.f);
+  auto put_b = [&](int slot) {
+    uint4* dst = reinterpret_cast<uint4*>(smem + slot * T::kStageFloats + T::kAFloats) +
+                 (b_q >> 2) * 8 * T::kLdB + (b_q & 3) * T::kLdB + b_n;
+    if (b_on) put_b_quads(dst, dst + 4 * T::kLdB, b_reg0, b_reg1);
+  };
+
+  // ------------------------------------------------ phase 1: P slice = X M_j
   {
-    float2* s_x = reinterpret_cast<float2*>(stage);  // [kPR][kXPad]
-    float2* s_m = s_x + kPR * kXPad;                 // [kBI][kTJ]
-    const int row = tid / 2;
-    const int half = tid % 2;
-    const int n_i = (n_in + kBI - 1) / kBI;
-    const int total = ((n_prt_pad + kPR - 1) / kPR) * n_i;
-    float2 xr[kXPerThread];
-    float2 mr;
-
-    auto fetch = [&](int s) {
-      const int p0 = (s / n_i) * kPR;
-      const int i0 = (s % n_i) * kBI;
+    const int p_end = min(p_lo + n_rows, n_prt);          // rows read from X
+    const float2* xb = x + static_cast<size_t>(b) * sb;
+    auto load_a = [&](int pass, int k, int slot) {
+      float2* s_x = reinterpret_cast<float2*>(smem + slot * T::kStageFloats);
+      const int r0 = p_lo + pass * kRows;
+      const int i0 = k * kBK;
+      if (x_vec) {  // 2 samples per copy
+        const int r = tid >> 3, q = (tid & 7) * 2;
+        const int gi = i0 + q;
+        const int cols = gi < n_in ? 8 * min(2, n_in - gi) : 0;
 #pragma unroll
-      for (int e = 0; e < kXPerThread; ++e) {
-        const int idx = tid + e * kThreads;
-        const int gp = p0 + idx / kBI;
-        const int gi = i0 + idx % kBI;
-        xr[e] = (gp < n_prt && gi < n_in) ? xb[static_cast<size_t>(gp) * ldx + gi]
-                                          : make_float2(0.f, 0.f);
-      }
-      const int gi = i0 + tid / kTJ;
-      const int gj = j0 + tid % kTJ;
-      const size_t off = static_cast<size_t>(gi) * n_out + gj;
-      mr = (gi < n_in && gj < n_out) ? make_float2(m_re[off], m_im[off]) : make_float2(0.f, 0.f);
-    };
-    auto put = [&]() {
+        for (int e = 0; e < kRows / 32; ++e) {
+          const int gp = r0 + r + 32 * e;
+          const int bytes = gp < p_end ? cols : 0;
+          const float2* src = bytes ? xb + static_cast<size_t>(gp) * ldx + gi : xb;
+          cp_async16(s_x + (r + 32 * e) * kLdA + q, src, bytes);
+        }
+      } else {
+        const int r = tid >> 4, q = tid & 15;
+        const int gi = i0 + q;
 #pragma unroll
-      for (int e = 0; e < kXPerThread; ++e) {
-        const int idx = tid + e * kThreads;
-        s_x[(idx / kBI) * kXPad + idx % kBI] = xr[e];
-      }
-      s_m[tid] = mr;
-    };
-
-    float acc_re[kPCols];
-    float acc_im[kPCols];
-#pragma unroll
-    for (int c = 0; c < kPCols; ++c) acc_re[c] = acc_im[c] = 0.f;
-
-    fetch(0);
-    put();
-    __syncthreads();
-    for (int s = 0; s < total; ++s) {
-      if (s + 1 < total) fetch(s + 1);  // in flight while this stage computes
-#pragma unroll
-      for (int ii = 0; ii < kBI; ++ii) {
-        const float2 xv = s_x[row * kXPad + ii];
-        const float4* mrow = reinterpret_cast<const float4*>(s_m + ii * kTJ + half * kPCols);
-#pragma unroll
-        for (int q = 0; q < kPCols / 2; ++q) {
-          const float4 mv = mrow[q];
-          cmac(acc_re[2 * q], acc_im[2 * q], xv.x, xv.y, mv.x, mv.y);
-          cmac(acc_re[2 * q + 1], acc_im[2 * q + 1], xv.x, xv.y, mv.z, mv.w);
+        for (int e = 0; e < kRows / 16; ++e) {
+          const int gp = r0 + r + 16 * e;
+          const int bytes = (gp < p_end && gi < n_in) ? 8 : 0;
+          const float2* src = bytes ? xb + static_cast<size_t>(gp) * ldx + gi : xb;
+          cp_async8(s_x + (r + 16 * e) * kLdA + q, src, bytes);
         }
       }
-      if (s % n_i == n_i - 1) {  // this pass of kPR rows is complete
-        const int gp = (s / n_i) * kPR + row;
-        if (gp < n_prt_pad) {
-#pragma unroll
-          for (int c = 0; c < kPCols; ++c)
-            s_p[gp * kTJ + half * kPCols + c] = make_float2(acc_re[c], acc_im[c]);
+    };
+    auto fetch_b = [&](int k) {  // M rows [16 k, 16 k + 16), columns j0 + [0, TJ)
+      const int gi = k * kBK + b_k, gj = j0 + b_n;
+      b_reg0 = b_reg1 = make_float2(0.f, 0.f);
+      if (b_on && gj < n_out) {
+        const size_t off = static_cast<size_t>(gi) * n_out + gj;
+        if (gi < n_in) b_reg0 = make_float2(__ldg(m_re + off), __ldg(m_im + off));
+        if (gi + 4 < n_in) {
+          const size_t off4 = off + 4 * static_cast<size_t>(n_out);
+          b_reg1 = make_float2(__ldg(m_re + off4), __ldg(m_im + off4));
         }
-#pragma unroll
-        for (int c = 0; c < kPCols; ++c) acc_re[c] = acc_im[c] = 0.f;
       }
-      __syncthreads();
-      if (s + 1 < total) put();
-      __syncthreads();
-    }
+    };
+    auto frag_a = [&](FragA& a, const float* stage, int k8) {
+      load_a_cplx(a, reinterpret_cast<const float2*>(stage) + warp * 16 * kLdA + k8, kLdA, lane);
+    };
+    auto busy = [&](int pass) { return pass * kRows + warp * 16 < n_rows; };
+    auto done = [&](int pass, float (&re)[kNT][4], float (&im)[kNT][4]) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = pass * kRows + warp * 16 + acc_row(lane, e);
+          if (r < n_rows) s_p[r * TJ + j * 8 + acc_col(lane, e)] = make_float2(re[j][e], im[j][e]);
+        }
+    };
+    const int n_pass = n_rows > 0 ? (n_rows + kRows - 1) / kRows : 0;
+    run_passes<TJ>(smem, n_pass, (n_in + kBK - 1) / kBK, load_a, fetch_b, put_b, frag_a, busy,
+                   done);
   }
 
-  // ------------------------------------------ phase 2: |W_k P| per Doppler pass
+  cluster.sync();  // every slice of P is formed and visible to the cluster
+
+  // ------------------------------------- phase 2: |W P| over this block's passes
   {
-    float* s_wr = stage;              // [kBK][kBM], W transposed
-    float* s_wi = stage + kBK * kBM;
-    const int tx = tid % kColThreads;
-    const int ty = tid / kColThreads;
-    const int n_p = n_prt_pad / kBK;
-    const int n_chunks = (n_fft + kBM - 1) / kBM;
-    const int my_chunks = split < n_chunks ? (n_chunks - 1 - split) / n_split + 1 : 0;
-    const int total = my_chunks * n_p;
+    const int n_k = n_prt_pad / kBK;
+    const int n_all = (n_fft + kRows - 1) / kRows;         // Doppler passes of the tile
+    const int n_pass = rank < n_all ? (n_all - 1 - rank) / kCluster + 1 : 0;
     float* ob = out + static_cast<size_t>(b) * n_fft * n_out;
-    float4 wr4[kBK / 4];
-    float4 wi4[kBK / 4];
-
-    auto fetch = [&](int s) {
-      const int gk = (split + (s / n_p) * n_split) * kBM + tid;
-      const int p0 = (s % n_p) * kBK;
-      const bool row_ok = gk < n_fft;
-      const size_t base = static_cast<size_t>(gk) * n_prt;
+    auto load_a = [&](int pass, int k, int slot) {
+      float* s_wr = smem + slot * T::kStageFloats;
+      float* s_wi = s_wr + kRows * kLdA;
+      const int k0 = (rank + pass * kCluster) * kRows;
+      const int p0 = k * kBK;
+      if (w_vec) {  // 4 pulses per copy
+        const int m = tid >> 2, q = (tid & 3) * 4;
+        const int gp = p0 + q;
+        const int cols = gp < n_prt ? 4 * min(4, n_prt - gp) : 0;
 #pragma unroll
-      for (int q = 0; q < kBK / 4; ++q) {
-        const int gp = p0 + 4 * q;
-        if (w_vec) {  // n_prt % 4 == 0: a float4 is wholly inside or outside
-          const bool ok = row_ok && gp < n_prt;
-          wr4[q] = ok ? *reinterpret_cast<const float4*>(w_re + base + gp)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-          wi4[q] = ok ? *reinterpret_cast<const float4*>(w_im + base + gp)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-        } else {
-          float r[4], i[4];
+        for (int e = 0; e < kRows / 64; ++e) {
+          const int gk = k0 + m + 64 * e;
+          const int bytes = gk < n_fft ? cols : 0;
+          const size_t off = bytes ? static_cast<size_t>(gk) * n_prt + gp : 0;
+          cp_async16(s_wr + (m + 64 * e) * kLdA + q, w_re + off, bytes);
+          cp_async16(s_wi + (m + 64 * e) * kLdA + q, w_im + off, bytes);
+        }
+      } else {
+        const int m = tid >> 4, q = tid & 15;
+        const int gp = p0 + q;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool ok = row_ok && gp + e < n_prt;
-            r[e] = ok ? w_re[base + gp + e] : 0.f;
-            i[e] = ok ? w_im[base + gp + e] : 0.f;
-          }
-          wr4[q] = make_float4(r[0], r[1], r[2], r[3]);
-          wi4[q] = make_float4(i[0], i[1], i[2], i[3]);
+        for (int e = 0; e < kRows / 16; ++e) {
+          const int gk = k0 + m + 16 * e;
+          const int bytes = (gk < n_fft && gp < n_prt) ? 4 : 0;
+          const size_t off = bytes ? static_cast<size_t>(gk) * n_prt + gp : 0;
+          cp_async4(s_wr + (m + 16 * e) * kLdA + q, w_re + off, bytes);
+          cp_async4(s_wi + (m + 16 * e) * kLdA + q, w_im + off, bytes);
         }
       }
     };
-    auto put = [&]() {
-#pragma unroll
-      for (int q = 0; q < kBK / 4; ++q) {
-        s_wr[(4 * q + 0) * kBM + tid] = wr4[q].x;
-        s_wr[(4 * q + 1) * kBM + tid] = wr4[q].y;
-        s_wr[(4 * q + 2) * kBM + tid] = wr4[q].z;
-        s_wr[(4 * q + 3) * kBM + tid] = wr4[q].w;
-        s_wi[(4 * q + 0) * kBM + tid] = wi4[q].x;
-        s_wi[(4 * q + 1) * kBM + tid] = wi4[q].y;
-        s_wi[(4 * q + 2) * kBM + tid] = wi4[q].z;
-        s_wi[(4 * q + 3) * kBM + tid] = wi4[q].w;
+    // P stage k: 16 rows of the owning block's slice, through distributed
+    // shared memory.  Stages advance by 16 rows and slices hold a multiple
+    // of 16, so a stage never straddles two owners.
+    int owner = 0, row = 0;
+    auto fetch_b = [&](int k) {
+      if (k == 0) owner = 0, row = 0;
+      const float2* src = cluster.map_shared_rank(s_p, owner) + (row + b_k) * TJ + b_n;
+      if (b_on) {
+        b_reg0 = src[0];
+        b_reg1 = src[4 * TJ];
       }
+      row += kBK;
+      if (row == rows_per) row = 0, ++owner;
     };
-
-    float acc_re[kTM][kTN];
-    float acc_im[kTM][kTN];
+    auto frag_a = [&](FragA& a, const float* stage, int k8) {
+      const float* s_wr = stage + warp * 16 * kLdA + k8;
+      load_a_planes(a, s_wr, s_wr + kRows * kLdA, kLdA, lane);
+    };
+    auto busy = [&](int pass) { return (rank + pass * kCluster) * kRows + warp * 16 < n_fft; };
+    auto done = [&](int pass, float (&re)[kNT][4], float (&im)[kNT][4]) {
+      const int k0 = (rank + pass * kCluster) * kRows + warp * 16;
 #pragma unroll
-    for (int i = 0; i < kTM; ++i)
+      for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int c = 0; c < kTN; ++c) acc_re[i][c] = acc_im[i][c] = 0.f;
-
-    if (total > 0) {
-      fetch(0);
-      put();
-    }
-    __syncthreads();
-    for (int s = 0; s < total; ++s) {
-      if (s + 1 < total) fetch(s + 1);
-      const int p0 = (s % n_p) * kBK;
-#pragma unroll
-      for (int pp = 0; pp < kBK; ++pp) {
-        const float4 pv = *reinterpret_cast<const float4*>(s_p + (p0 + pp) * kTJ + tx * kTN);
-        const float4* wr = reinterpret_cast<const float4*>(s_wr + pp * kBM + ty * kTM);
-        const float4* wi = reinterpret_cast<const float4*>(s_wi + pp * kBM + ty * kTM);
-        const float4 r0 = wr[0], r1 = wr[1], i0 = wi[0], i1 = wi[1];
-        const float a_re[kTM] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
-        const float a_im[kTM] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          cmac(acc_re[i][0], acc_im[i][0], a_re[i], a_im[i], pv.x, pv.y);
-          cmac(acc_re[i][1], acc_im[i][1], a_re[i], a_im[i], pv.z, pv.w);
+        for (int e = 0; e < 4; ++e) {
+          const int r = k0 + acc_row(lane, e);
+          const int c = j0 + j * 8 + acc_col(lane, e);
+          if (r < n_fft && c < n_out)
+            ob[static_cast<size_t>(r) * n_out + c] =
+                sqrtf(re[j][e] * re[j][e] + im[j][e] * im[j][e]);
         }
-      }
-      if (s % n_p == n_p - 1) {  // this Doppler pass is complete: magnitude epilogue
-        const int k0 = (split + (s / n_p) * n_split) * kBM;
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const int row = k0 + ty * kTM + i;
-#pragma unroll
-          for (int c = 0; c < kTN; ++c) {
-            const int col = j0 + tx * kTN + c;
-            if (row < n_fft && col < n_out) {
-              const float re = acc_re[i][c];
-              const float im = acc_im[i][c];
-              ob[static_cast<size_t>(row) * n_out + col] = sqrtf(re * re + im * im);
-            }
-            acc_re[i][c] = acc_im[i][c] = 0.f;
-          }
-        }
-      }
-      __syncthreads();
-      if (s + 1 < total) put();
-      __syncthreads();
-    }
+    };
+    run_passes<TJ>(smem, n_pass, n_k, load_a, fetch_b, put_b, frag_a, busy, done);
   }
+
+  cluster.sync();  // no block leaves while a peer may still read its P slice
 }
 
-size_t smem_bytes(int n_prt) {
-  return sizeof(float) * (static_cast<size_t>(kStageFloats) +
-                          static_cast<size_t>(round_up(n_prt, kBK)) * kTJ * 2);
+// The launch shape: tile width, P rows per block and shared memory per block.
+struct Shape {
+  int tj, rows_per;
+  size_t smem;
+};
+
+Shape pick_shape(int n_prt, int n_out, int batch, int n_sms) {
+  const int rows_per = round_up((round_up(n_prt, kBK) + kCluster - 1) / kCluster, kBK);
+  // 32-column tiles where they give two blocks per SM and fit, else 16
+  const long long wide_blocks = static_cast<long long>((n_out + 31) / 32) * batch * kCluster;
+  const size_t wide = Tile<32>::smem_bytes(rows_per);
+  if (wide_blocks >= 2LL * n_sms && wide <= kMaxSmem) return Shape{32, rows_per, wide};
+  return Shape{16, rows_per, Tile<16>::smem_bytes(rows_per)};
+}
+
+template <int TJ>
+int launch(const Shape& shape, const float2* x, long long sb, int ldx, const float* m_re,
+           const float* m_im, const float* w_re, const float* w_im, float* out, int batch,
+           int n_prt, int n_in, int n_out, int n_fft, int x_vec, int w_vec, cudaStream_t stream) {
+  auto kernel = fused_pc_rdm_kernel<TJ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(shape.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((n_out + TJ - 1) / TJ) * kCluster, batch, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = shape.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, sb, ldx, m_re, m_im, w_re, w_im, out, n_prt, n_in,
+                           n_out, n_fft, shape.rows_per, x_vec, w_vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory one block needs for `n_prt` pulses.
-extern "C" int rsp_fused_pc_rdm_smem_bytes(int n_prt) {
-  return static_cast<int>(smem_bytes(n_prt));
+// Dynamic shared memory one block of the launch shape takes for these
+// dimensions (the wrapper rejects what exceeds a block's 227 KB).
+extern "C" int rsp_fused_pc_rdm_smem_bytes(int n_prt, int n_out, int batch, int n_sms) {
+  return static_cast<int>(pick_shape(n_prt, n_out, batch, n_sms).smem);
 }
 
 // Launches on `stream`; returns the first cudaError_t (0 on success).
 // x: complex64 with unit fast-time stride, row stride `ldx`, batch stride `sb`
 // (complex elements); m_re/m_im (n_in, n_out), w_re/w_im (n_fft, n_prt)
 // contiguous float32; out (batch, n_fft, n_out) float32.  `n_sms` is the
-// card's SM count; `w_vec` = 1 when n_prt % 4 == 0 and the W planes are
-// 16-byte aligned.
+// card's SM count.  `x_vec` = 1 when x is 16-byte aligned and ldx and sb are
+// even; `w_vec` = 1 when n_prt % 4 == 0 and the W planes are 16-byte aligned.
 extern "C" int rsp_fused_pc_rdm(const void* x, long long sb, int ldx, const void* m_re,
                                 const void* m_im, const void* w_re, const void* w_im,
                                 void* out, int batch, int n_prt, int n_in, int n_out,
-                                int n_fft, int n_sms, int w_vec, void* stream) {
-  const int tiles = (n_out + kTJ - 1) / kTJ;
-  const int passes = (n_fft + kBM - 1) / kBM;
-  int n_split = n_sms / (tiles * batch);
-  n_split = n_split < 1 ? 1 : (n_split > passes ? passes : n_split);
-  const size_t smem = smem_bytes(n_prt);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_pc_rdm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(tiles, batch, n_split);
-  fused_pc_rdm_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), sb, ldx, static_cast<const float*>(m_re),
-      static_cast<const float*>(m_im), static_cast<const float*>(w_re),
-      static_cast<const float*>(w_im), static_cast<float*>(out), n_prt, n_in, n_out, n_fft,
-      n_split, w_vec);
-  return static_cast<int>(cudaGetLastError());
+                                int n_fft, int n_sms, int x_vec, int w_vec, void* stream) {
+  const Shape shape = pick_shape(n_prt, n_out, batch, n_sms);
+  const auto* xp = static_cast<const float2*>(x);
+  const auto* mr = static_cast<const float*>(m_re);
+  const auto* mi = static_cast<const float*>(m_im);
+  const auto* wr = static_cast<const float*>(w_re);
+  const auto* wi = static_cast<const float*>(w_im);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (shape.tj == 32)
+    return launch<32>(shape, xp, sb, ldx, mr, mi, wr, wi, o, batch, n_prt, n_in, n_out, n_fft,
+                      x_vec, w_vec, st);
+  return launch<16>(shape, xp, sb, ldx, mr, mi, wr, wi, o, batch, n_prt, n_in, n_out, n_fft,
+                    x_vec, w_vec, st);
 }

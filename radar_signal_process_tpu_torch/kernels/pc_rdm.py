@@ -8,14 +8,17 @@ filter, :func:`pc_matrix_fir` for the short pulse's raw-tap FIR), W the
 windowed, zero-padded (n_fft, n_prt) DFT plane (``kernels.rdm.dft_planes``),
 both held as float32 re/im planes as the Pallas wrapper casts them.
 
-On a CUDA tensor :func:`fused_pc_rdm` launches ``csrc/pc_rdm.cu``: each
-block forms a 16-column tile of the compressed pulses ``P = X . M`` in
-shared memory and contracts it with W, in full FP32 on the CUDA cores, with
-the magnitude as its epilogue; P never reaches device memory.  A G0 frame is
-~35 GFLOP of that work, so it is bound by FP32 arithmetic.  The echo is read
-in place (unit fast-time stride, any row stride), so the pulse segments of
-a beam need no copy.  On a CPU tensor it runs :func:`fused_pc_rdm_plain`,
-two complex64 matmuls and ``abs``.
+On a CUDA tensor :func:`fused_pc_rdm` launches ``csrc/pc_rdm.cu``: a
+thread-block cluster owns a range tile of the compressed pulses
+``P = X . M``; each block forms a slice of its rows in shared memory, and
+every block contracts its share of the Doppler rows with the whole of P,
+read from its peers through distributed shared memory.  Both products run
+on the tensor cores at FP32 accuracy (the 3xTF32 split of
+``csrc/cgemm_3xtf32.cuh``), with the magnitude as the epilogue; P never
+reaches device memory.  A G0 frame is ~35 GFLOP of that work, so it is
+bound by arithmetic.  The echo is read in place (unit fast-time stride, any
+row stride), so the pulse segments of a beam need no copy.  On a CPU tensor
+it runs :func:`fused_pc_rdm_plain`, two complex64 matmuls and ``abs``.
 """
 
 from __future__ import annotations
@@ -124,20 +127,22 @@ def fused_pc_rdm(
     if min(n_prt, n_in, n_out, n_fft) < 1:
         raise ValueError(f"fused_pc_rdm: empty geometry {(n_prt, n_in, n_out, n_fft)}")
     lib = _build.library()
-    smem = lib.rsp_fused_pc_rdm_smem_bytes(n_prt)
+    sms = torch.cuda.get_device_properties(echo.device).multi_processor_count
+    smem = lib.rsp_fused_pc_rdm_smem_bytes(n_prt, n_out, batch, sms)
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"fused_pc_rdm: a {n_prt}-pulse P tile needs {smem} B of shared memory "
-            f"(> {SMEM_LIMIT})"
+            f"fused_pc_rdm: a {n_prt}-pulse P slice needs {smem} B of shared memory "
+            f"per block (> {SMEM_LIMIT})"
         )
-    sms = torch.cuda.get_device_properties(echo.device).multi_processor_count
+    # 16-byte copies: 2 samples of an X row, 4 pulses of a W row
+    x_vec = int(x3.data_ptr() % 16 == 0 and x3.stride(0) % 2 == 0 and x3.stride(1) % 2 == 0)
     w_vec = int(n_prt % 4 == 0 and w_re.data_ptr() % 16 == 0 and w_im.data_ptr() % 16 == 0)
     out = torch.empty(batch_shape + (n_fft, n_out), dtype=torch.float32, device=echo.device)
     stream = torch.cuda.current_stream(echo.device).cuda_stream
     rc = lib.rsp_fused_pc_rdm(
         x3.data_ptr(), x3.stride(0), x3.stride(1), m_re.data_ptr(), m_im.data_ptr(),
         w_re.data_ptr(), w_im.data_ptr(), out.data_ptr(),
-        batch, n_prt, n_in, n_out, n_fft, sms, w_vec, stream,
+        batch, n_prt, n_in, n_out, n_fft, sms, x_vec, w_vec, stream,
     )
     _build.check(rc, "rsp_fused_pc_rdm")
     fused_pc_rdm.launches += 1

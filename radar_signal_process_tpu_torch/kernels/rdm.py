@@ -7,10 +7,11 @@ built on the host in float64 (``ops.mtd.dft_plane``) and held as float32
 re/im planes, exactly as the Pallas wrapper casts it.
 
 On a CUDA tensor :func:`doppler_rdm` launches ``csrc/rdm.cu``: a tiled
-complex GEMM in full FP32 on the CUDA cores with the magnitude and the
-notch as its epilogue.  At G2 it does ~156 GFLOP per window (52 x 4 real
-332 x 332 x 3404 GEMMs) against ~0.47 GB of traffic, so it is bound by
-FP32 arithmetic.  On a CPU tensor it runs :func:`doppler_rdm_plain`, the
+complex GEMM on the tensor cores at FP32 accuracy (the 3xTF32 split of
+``csrc/cgemm_3xtf32.cuh``, a 3-stage ``cp.async`` ring) with the magnitude
+and the notch as its epilogue.  At G2 it does ~156 GFLOP per window (52 x 4
+real 332 x 332 x 3404 GEMMs) against ~0.7 GB of traffic, so it is bound by
+arithmetic.  On a CPU tensor it runs :func:`doppler_rdm_plain`, the
 complex64 matmul, ``abs`` and the notch — equal to
 ``ops.mtd.doppler_process(use_matmul=True)`` + ``zero_velocity_notch``.
 """
@@ -76,9 +77,12 @@ def doppler_rdm(
     out = torch.empty(batch_shape + (n_fft, nr), dtype=torch.float32, device=pc.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(pc.device).cuda_stream
+    # 16-byte copies: 4 pulses of a W row, 2 samples of an X row
+    w_vec = int(n % 4 == 0 and w_re.data_ptr() % 16 == 0 and w_im.data_ptr() % 16 == 0)
+    x_vec = int(nr % 2 == 0 and pc.data_ptr() % 16 == 0)
     rc = lib.rsp_doppler_rdm(
         w_re.data_ptr(), w_im.data_ptr(), pc.data_ptr(), out.data_ptr(),
-        batch, n_fft, n, nr, int(notch[0]), int(notch[1]), stream,
+        batch, n_fft, n, nr, int(notch[0]), int(notch[1]), w_vec, x_vec, stream,
     )
     _build.check(rc, "rsp_doppler_rdm")
     doppler_rdm.launches += 1

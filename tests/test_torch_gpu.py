@@ -25,6 +25,7 @@ from radar_signal_process_tpu_torch.ops.windows import make_window
 
 RTOL, ATOL = 2e-4, 2e-3
 B3_PEAK_ATOL = 2e-5   # B3: |kernel - plain| <= 2e-5 * peak + RTOL * |plain|
+C128_PEAK = 1e-5      # |kernel - complex128 product| <= 1e-5 * peak
 
 
 @pytest.fixture
@@ -115,8 +116,9 @@ def _planes(window, device, n_fft=None, shift=True):
 @pytest.mark.parametrize(
     "shape,n_fft,shift,notch",
     [((3, 332, 700), None, True, (163, 167)), ((2, 100, 65), None, True, None),
-     ((1, 48, 130), 64, False, None), ((5, 17, 3), None, True, (7, 9))],
-    ids=["g2-rows", "ragged", "zero-padded", "tiny"],
+     ((1, 48, 130), 64, False, None), ((5, 17, 3), None, True, (7, 9)),
+     ((52, 332, 3404), None, True, (163, 167))],
+    ids=["g2-rows", "ragged", "zero-padded", "tiny", "g2-full"],
 )
 def test_doppler_rdm_kernel_matches_plain(rng, cuda_device, shape, n_fft, shift, notch):
     pc = _pc(rng, shape, cuda_device)
@@ -128,6 +130,33 @@ def test_doppler_rdm_kernel_matches_plain(rng, cuda_device, shape, n_fft, shift,
     torch.cuda.synchronize()
     assert krdm.doppler_rdm.launches == before + 1
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _c128_error(got, want128):
+    """max |got - want| over the peak of the complex128 product's magnitude."""
+    return float((got.double() - want128).abs().max() / want128.abs().max())
+
+
+@pytest.mark.gpu
+def test_doppler_rdm_kernel_large_dynamic_range(rng, cuda_device):
+    """One target 1e5 above unit noise: the 3xTF32 split keeps the weak
+    cells.  Held to the peak-scaled form of the RDM tolerance (the absolute
+    2e-3 is a unit-scale rule; the slice does the same at int16 scale) and
+    to 1e-5 of the peak against the complex128 product."""
+    shape = (3, 332, 700)
+    pc = _pc(rng, shape, cuda_device)
+    pulses = torch.arange(332, device=cuda_device)
+    pc[1, :, 321] += 1e5 * torch.exp(2j * torch.pi * 0.137 * pulses).to(torch.complex64)
+    w_re, w_im = _planes(make_window("kaiser", 332), cuda_device)
+    got = krdm.doppler_rdm(pc, w_re, w_im, (163, 167))
+    want = krdm.doppler_rdm_plain(pc, w_re, w_im, (163, 167))
+    exact = torch.matmul(torch.complex(w_re, w_im).to(torch.complex128),
+                         pc.to(torch.complex128)).abs()
+    exact[:, 163:168] = 0.0
+    peak = float(want.abs().max())
+    assert peak > 1e6
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=B3_PEAK_ATOL * peak)
+    assert _c128_error(got, exact) <= C128_PEAK
 
 
 @pytest.mark.gpu
@@ -233,6 +262,13 @@ B3_CASES = {
     "ragged-out": ((2,), 64, 100, 37, 128, False, (5, 3)),
     "batched-4d": ((2, 3), 48, 62, 70, 96, True, (0, 0)),
     "odd-prt": ((1,), 37, 30, 17, 64, True, (1, 0)),
+    # wide shape (32-column tiles) on ragged edges
+    "wide-ragged": ((3, 2), 200, 70, 300, 256, True, (2, 4)),
+    # beyond the 1536-class P tile of one block: only a cluster holds it
+    "n_prt-2048": ((2,), 2048, 504, 512, 2048, False, (62, 0)),
+    "n_prt-4096-narrow": ((2,), 4096, 62, 62, 4096, False, (0, 504)),
+    # odd column offset: the echo is not 16-byte aligned, 8-byte copies
+    "x-8-byte": ((2,), 1536, 504, 512, 2048, False, (61, 1)),
 }
 
 
@@ -279,9 +315,29 @@ def test_fused_pc_rdm_kernel_rejects_bad_inputs(rng, cuda_device):
         kpcr.fused_pc_rdm(echo[:0], m_re, m_im, w_re, w_im)
     with pytest.raises(ValueError, match="DFT planes"):
         kpcr.fused_pc_rdm(echo[..., :15, :], m_re, m_im, w_re, w_im)
-    long_echo, *planes = _b3_inputs(rng, cuda_device, (1,), 2000, 4, 3, 16, False, (0, 0))
+    long_echo, *planes = _b3_inputs(rng, cuda_device, (1,), 41000, 4, 3, 16, False, (0, 0))
     with pytest.raises(ValueError, match="shared memory"):
         kpcr.fused_pc_rdm(long_echo, *planes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["g0-short", "g0-long"])
+def test_fused_pc_rdm_kernel_large_dynamic_range(rng, cuda_device, case):
+    """One target 1e5 above unit noise, held at the B3 tolerance against the
+    plain version and at 1e-5 of the peak against the complex128 product."""
+    echo, m_re, m_im, w_re, w_im = _b3_inputs(rng, cuda_device, *B3_CASES[case])
+    n_prt = echo.shape[-2]
+    pulses = torch.arange(n_prt, device=cuda_device)
+    echo[1, :, 20] += 1e5 * torch.exp(2j * torch.pi * 0.211 * pulses).to(torch.complex64)
+    got = kpcr.fused_pc_rdm(echo, m_re, m_im, w_re, w_im)
+    want = kpcr.fused_pc_rdm_plain(echo, m_re, m_im, w_re, w_im)
+    c128 = torch.complex128
+    p = torch.matmul(echo.to(c128), torch.complex(m_re, m_im).to(c128))
+    exact = torch.matmul(torch.complex(w_re, w_im).to(c128), p).abs()
+    peak = float(want.abs().max())
+    assert peak > 1e4 * float(want[0].mean())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=B3_PEAK_ATOL * peak)
+    assert _c128_error(got, exact) <= C128_PEAK
 
 
 # ----------------------------------------------------------------- B1 at G0

@@ -189,6 +189,135 @@ def test_library_path_is_content_addressed():
     assert path.name.startswith("librsp_kernels-") and path.suffix == ".so"
     assert path == _build.library_path()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["cfar.cu", "pc_rdm.cu", "rdm.cu"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["cgemm_3xtf32.cuh"]
+    assert _build.CSRC / "cgemm_3xtf32.cuh" in _build._sources()
+
+
+def test_library_path_follows_header_edits(tmp_path, monkeypatch):
+    """A header is part of the hash: editing it names a new library, so the
+    sources that include it are rebuilt."""
+    for src in _build._sources():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / "cgemm_3xtf32.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != before
+
+
+# ------------------------------------------------- the 3xTF32 error model
+# csrc/cgemm_3xtf32.cuh runs B2's and B3's complex products on the tensor
+# cores: each operand split as hi = rna_tf32(a), lo = rna_tf32(a - hi),
+# three TF32 products per real product (lo.lo dropped), partial sums of
+# `chunk` K-terms rounded into an FP32 accumulator.  Emulated here with the
+# tensor core's in-chain accumulation taken as exact and the partial then
+# truncated toward zero, the pessimistic reading of its rounding.
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """rna_tf32, the rounding of cvt.rna.tf32.f32: to nearest, ties away from
+    zero, to 10 explicit mantissa bits (the low 13 bits of the float32 pattern
+    cleared).  The kernels compute it with the same integer add and mask."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)  # the float32 subtraction is exact
+
+
+def _to_f32_toward_zero(x: np.ndarray) -> np.ndarray:
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _cgemm_3xtf32(a: np.ndarray, b: np.ndarray, chunk: int) -> np.ndarray:
+    """complex64 (m, k) @ (k, n) as the kernels form it: four real 3xTF32
+    products into separate re/im FP32 accumulators, flushed every `chunk`."""
+    ar, ai, br, bi = (_split_tf32(p) for p in (a.real, a.imag, b.real, b.imag))
+
+    def real_product(x, y, ks):
+        (xh, xl), (yh, yl) = x, y
+        mm = lambda u, v: u[:, ks].astype(np.float64) @ v[ks].astype(np.float64)  # noqa: E731
+        return mm(xh, yh) + mm(xh, yl) + mm(xl, yh)
+
+    re = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    im = np.zeros_like(re)
+    for k0 in range(0, a.shape[1], chunk):
+        ks = slice(k0, k0 + chunk)
+        re += _to_f32_toward_zero(real_product(ar, br, ks) - real_product(ai, bi, ks))
+        im += _to_f32_toward_zero(real_product(ar, bi, ks) + real_product(ai, br, ks))
+    return (re + 1j * im).astype(np.complex64)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0**-10)                      # TF32 spacing at 1
+    x = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp * 0.49, 1 + ulp * 0.51,
+                  1 + ulp * 1.5, 3.1415927], np.float32)
+    want = np.array([1 + ulp, -(1 + ulp), one, 1 + ulp, 1 + 2 * ulp, 3.140625], np.float32)
+    np.testing.assert_array_equal(_tf32_rna(x), want)
+    hi, lo = _split_tf32(x)
+    assert (hi.view(np.uint32) & 0x1FFF == 0).all() and (lo.view(np.uint32) & 0x1FFF == 0).all()
+    assert (np.abs(x - hi - lo) <= np.abs(x) * 2.0**-22).all()
+
+
+def _c64(rng, shape):
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _with_target(x, col, freq):
+    """One target 1e5 above unit noise in fast-time column `col`."""
+    x = x.copy()
+    x[:, col] += (1e5 * np.exp(2j * np.pi * freq * np.arange(x.shape[0]))).astype(np.complex64)
+    return x
+
+
+# 3xTF32 error against float64 over the float32 matmul's, at most this
+_3XTF32_OVER_F32 = 6.0
+
+
+@pytest.mark.parametrize("target", [False, True], ids=["noise", "target-1e5"])
+def test_3xtf32_error_model_b2(rng, target):
+    """B2 at a G2-like 332 x 64 slice (8-term partials, as rdm.cu flushes):
+    inside the card tolerances against float64 and near float32's error."""
+    x = _c64(rng, (332, 64))
+    if target:
+        x = _with_target(x, 21, 0.137)
+    w_re, w_im = (p.numpy() for p in _planes(make_window("kaiser", 332, 8.0)))
+    w = (w_re + 1j * w_im).astype(np.complex64)
+    exact = np.abs(w.astype(np.complex128) @ x.astype(np.complex128))
+    got = np.abs(_cgemm_3xtf32(w, x, chunk=8))
+    f32 = np.abs(w @ x)
+    peak = exact.max()
+    err, f32_err = np.abs(got - exact).max(), np.abs(f32 - exact).max()
+    assert err <= 1e-5 * peak                                    # the complex128 bound
+    # the B2 card tolerance; with the target, its peak-scaled form (test_torch_gpu.py)
+    np.testing.assert_allclose(got, f32, rtol=RTOL, atol=2e-5 * peak if target else ATOL)
+    assert err <= _3XTF32_OVER_F32 * f32_err
+
+
+@pytest.mark.parametrize("target", [False, True], ids=["noise", "target-1e5"])
+def test_3xtf32_error_model_b3(rng, target):
+    """B3 at a G0-like 1536-pulse, 16-column tile: P = X M then W P, both in
+    3xTF32 with 16-term partials (pc_rdm.cu flushes every two 8-deep steps),
+    P rounded to float32 between them as it is held in shared memory."""
+    x = _c64(rng, (1536, 62))
+    if target:
+        x = _with_target(x, 20, 0.2503)                      # peaks in a kept row, 1152
+    m = _c64(rng, (62, 16))
+    w_re, w_im = (p.numpy() for p in _planes(make_window("hamming", 1536)))
+    w = (w_re + 1j * w_im).astype(np.complex64)[::8]             # 192 of the 1536 Doppler rows
+    c128 = np.complex128
+    exact = np.abs(w.astype(c128) @ (x.astype(c128) @ m.astype(c128)))
+    got = np.abs(_cgemm_3xtf32(w, _cgemm_3xtf32(x, m, chunk=16), chunk=16))
+    f32 = np.abs(w @ (x @ m))
+    peak = exact.max()
+    err, f32_err = np.abs(got - exact).max(), np.abs(f32 - exact).max()
+    assert err <= 1e-5 * peak                                    # the complex128 bound
+    assert (np.abs(got - f32) <= 2e-5 * peak + RTOL * f32).all()  # the B3 card tolerance
+    assert err <= _3XTF32_OVER_F32 * f32_err
 
 
 def test_wrappers_reject_unsupported_devices(rng):
