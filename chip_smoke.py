@@ -15,15 +15,19 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    cuFFT form) at G2 geometry, 52 x 332 x 3404, f32 tolerance; both the
    kernel's and the plain version's max error against the product taken in
    complex128 on the card, as a share of the peak (the kernel's at most
-   1e-5);
+   1e-5); its bound (3xTF32 operations at the TF32 peak);
 4. B1      — the cascaded-CFAR kernel against its plain version, bit for bit,
    on the B2 output (three G2 segments, after the divisor-20 re-notch) and
    on a crafted RDM (notched rows, ties, edge columns, a cell exactly on the
-   threshold, no range pass, E=2, smallest-of);
+   threshold, no range pass, E=2, smallest-of); then, timed in turns with
+   the plain version, its time per call and its device time (a CUDA graph of
+   20 calls), bytes moved, GB/s, the share of the 3.35 TB/s byte floor and
+   the launches of one call (one for all segments), beside the card's name
+   and power limit;
 5. slice   — writes a seeded 4-frame 16-channel G2 capture with one point
    target and runs ``radar_signal_process_tpu_torch.cli stream`` over it at
    full width (13 beams, win_size 4, 3 windows) with the CLI's default
-   ``.bin`` reader; checks both kernels ran,
+   ``.bin`` reader; checks both kernels ran (B1 once per window),
    the RDMs are finite and agree with the plain versions, and the target is
    detected in the beam it steers to; times each stage with CUDA events;
 6. B3      — the fused PC + RDM kernel against its plain version (two
@@ -33,16 +37,18 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    and both against the complex128 product, as for B2;
 7. B1 (G0) — the CFAR kernel bit for bit against its plain version at G0
    geometry (2048 x 62 and 2048 x 512, one segment, n_clutter 6), on B3's
-   summed, notched output and on crafted RDMs;
+   summed, notched output and on crafted RDMs; timed per segment as in 4;
 8. G0      — writes a seeded 4-frame G1 capture (the known-good target,
    per-frame frequency indices 5, 2, 9, 5) and runs
    ``radar_signal_process_tpu_torch.cli dmx`` over it at full G0 width;
-   checks B3 and B1 ran, the RDMs are finite and agree with the plain
+   checks B3 and B1 ran (B1 once per segment), the RDMs are finite and agree with the plain
    versions, and the target is measured within 0.3 m/s and 2 range cells in
    every frame; times each stage with CUDA events, the ``.bin`` parse, and
    the frame rate against the radar's 12.5 frames/s.
 
-The line before the last is a JSON summary of the kernels; the last line is
+The line before the last is a JSON summary of the kernels (with each one's
+bound: the larger of its bytes over 3.35 TB/s and its operations over the
+peak rate of their type); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
 the JAX package: only ``radar_signal_process_tpu_torch`` (whose ``ingest``
 and ``sim`` modules give the capture reader and writer).
@@ -70,6 +76,10 @@ G0_FREQ_INDEX = (5, 2, 9, 5)      # per-frame frequency index of the G0 capture
 G0_BEAM_POS = (2, 2, 3, 2)
 G0_REAL_TIME = 1.0 / (1536 * 52.08e-6)  # frames/s: one G0 frame per 80.0 ms
 REPS = 10
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory rate
+FP32_FLOP_PER_S = 67e12           # H100 SXM FP32 peak outside the tensor cores
+TF32_FLOP_PER_S = 495e12          # H100 SXM dense TF32 tensor-core peak
+SMI = {"line": ""}                # nvidia-smi name and power limit of the card
 
 
 def fail(msg: str) -> None:
@@ -94,6 +104,40 @@ def cuda_ms(fns: dict, reps: int = REPS) -> dict:
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+def graph_ms(fn, n: int = 20) -> float:
+    """Device ms per call of ``fn``: a CUDA graph of ``n`` calls, replayed
+    and timed with CUDA events, so no host time of the wrapper is in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return float(np.median(times))
+
+
+def bound_ms(n_bytes: float, n_ops: float, op_rate: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate for their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / op_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def c128_error(got: torch.Tensor, exact: torch.Tensor) -> float:
     """max |got - exact| as a share of the peak of ``exact`` (float64)."""
     return float((got.double() - exact).abs().max() / exact.abs().max())
@@ -109,6 +153,7 @@ def phase_device() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
+    SMI["line"] = smi
     print(smi)
     print(f"device: {name} | torch {torch.__version__} | CUDA {torch.version.cuda} "
           f"| count {torch.cuda.device_count()}")
@@ -194,8 +239,17 @@ def phase_rdm(dev) -> tuple[dict, torch.Tensor]:
           f"cufft {ms['cufft']:.3f}")
     if not (ok and ok_fft):
         fail("B2: kernel disagrees with its plain version")
+    # read the pulses and both DFT planes once, write the RDM once; 8 real
+    # flops per complex multiply-add, three TF32 products per real product
+    n_bytes = pc.numel() * 8 + 2 * params.dft_re.numel() * 4 + got.numel() * 4
+    flops = 8.0 * G2_PULSES * G2_PULSES * G2_BATCH * G2_RANGE
+    bound, bound_by = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
+    print(f"B2 bound: {bound:.3f} ms by {bound_by} (3xTF32: {3 * flops:.3e} TF32 flops at "
+          f"495 TFLOP/s; {n_bytes / 1e6:.1f} MB at 3.35 TB/s; the FP32 route's bound "
+          f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms at 67 TFLOP/s) | {SMI['line']}")
     del want, fft, pc
     return {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             "cufft_ms": ms["cufft"], "error_vs_c128": err_c128,
             "plain_error_vs_c128": plain_c128}, got
 
@@ -246,6 +300,38 @@ def crafted_rdm(shape, rng, n_clutter: int, segments, unshifted: bool = False) -
     return rdm
 
 
+def b1_report(label: str, x: torch.Tensor, cfg, n_clutter: int, kernel, plain) -> dict:
+    """Time B1 and its plain version in turns, count the launches of one
+    call, and hold the time against the byte floor: the used rows of the
+    f32 RDM read once, both byte-wide flag maps written once."""
+    from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
+
+    nv, nr = x.shape[-2], x.shape[-1]
+    batch = x.numel() // (nv * nr)
+    nvu = nv - 2 * n_clutter - 1
+    n_bytes = batch * nvu * nr * 4 + 2 * batch * nv * nr
+    # per used cell and axis: r-1 adds, a division, a product, a compare
+    n_ops = 2.0 * batch * nvu * nr * (cfg.ref_cells + 2)
+    bound, bound_by = bound_ms(n_bytes, n_ops, FP32_FLOP_PER_S)
+    before = cascaded_cfar2d.launches
+    kernel()
+    per_call = cascaded_cfar2d.launches - before
+    ms = cuda_ms({"kernel": kernel, "plain": plain})
+    dev_ms = graph_ms(kernel)
+    print(f"B1 timing [{label}] {tuple(x.shape)}: kernel {ms['kernel']:.4f} ms per call "
+          f"(CUDA events around the call), {dev_ms:.4f} ms device time (CUDA graph of 20 "
+          f"calls); plain {ms['plain']:.4f} ms; {n_bytes / 1e6:.2f} MB moved -> "
+          f"{n_bytes / dev_ms / 1e6:.1f} GB/s device, {n_bytes / ms['kernel'] / 1e6:.1f} GB/s "
+          f"per call; byte floor {bound:.4f} ms at 3.35 TB/s ({bound_by}) = "
+          f"{100 * bound / dev_ms:.1f}% device, {100 * bound / ms['kernel']:.1f}% per call; "
+          f"{per_call} launch(es) per call | {SMI['line']}")
+    if per_call != 1:
+        fail(f"B1 [{label}]: {per_call} launches in one call (want 1)")
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "device_ms": dev_ms,
+            "bound_ms": bound, "bound_by": bound_by, "bytes": n_bytes,
+            "launches_per_call": per_call}
+
+
 def phase_cfar(dev, rdm_b2: torch.Tensor) -> dict:
     import dataclasses
 
@@ -286,14 +372,11 @@ def phase_cfar(dev, rdm_b2: torch.Tensor) -> dict:
               f"{'bit-identical' if n_diff == 0 else 'MISMATCH'}")
     if mismatched:
         fail(f"B1: {mismatched} kernel flags differ from the plain version")
-    ms = cuda_ms({
-        "kernel": lambda: cascaded_cfar2d(rdm_n, cfg, n_clutter, segments),
-        "plain": lambda: segmented_cfar(rdm_n, segments, cfg, n_clutter),
-    })
-    print(f"B1 timing {tuple(rdm_n.shape)} 3 segments: median ms kernel "
-          f"{ms['kernel']:.3f} plain {ms['plain']:.3f}")
-    return {"max_abs_err": max_abs, "mismatched_flags": mismatched,
-            "ms": ms["kernel"], "plain_ms": ms["plain"]}
+    stats = b1_report("G2, 3 segments", rdm_n, cfg, n_clutter,
+                      lambda: cascaded_cfar2d(rdm_n, cfg, n_clutter, segments),
+                      lambda: segmented_cfar(rdm_n, segments, cfg, n_clutter))
+    return {"max_abs_err": max_abs, "mismatched_flags": mismatched, **stats,
+            "library_ms": None}
 
 
 def write_scene(root: str, prof, rng) -> tuple[str, int, int, int]:
@@ -390,6 +473,8 @@ def phase_slice(dev) -> dict:
             fail(f"slice: cli stream rc {rc}, {len(stamps)} windows (want 3)")
         if min(launches.values()) < 1:
             fail(f"slice: a kernel did not run on the main path: {launches}")
+        if launches["cascaded_cfar2d"] != len(stamps):   # one B1 call per window
+            fail(f"slice: {launches['cascaded_cfar2d']} B1 launches for {len(stamps)} windows")
         if not all(all(w) for w in found):
             fail(f"slice: target not detected in beam {beam} in every slice: {found}")
         rate = (len(stamps) - 1) / (stamps[-1] - stamps[0])
@@ -516,6 +601,18 @@ def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
               f"kernel {ms[f'{name}_kernel']:.3f} plain {ms[f'{name}_plain']:.3f}")
     kernel_ms = ms["short_kernel"] + ms["long_kernel"]
     plain_ms = ms["short_plain"] + ms["long_plain"]
+    # per call: read the segment, both PC planes and both DFT planes once,
+    # write the RDM once; X.M then W.P, three TF32 products per real product
+    n_bytes = flops = 0.0
+    for (seg, m_re, _), out in zip(segments.values(), outs):
+        n_in, n_out = m_re.shape
+        n_bytes += (seg.numel() * 8 + m_re.numel() * 8 + chain.dft_re.numel() * 8
+                    + out.numel() * 4)
+        flops += 8.0 * G0_BATCH * prof.prt_per_frame * n_out * (n_in + chain.dft_re.shape[0])
+    bound, bound_by = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
+    print(f"B3 bound per frame (both segments): {bound:.3f} ms by {bound_by} (3xTF32: "
+          f"{3 * flops:.3e} TF32 flops at 495 TFLOP/s; {n_bytes / 1e6:.1f} MB; the FP32 "
+          f"route's bound {flops / FP32_FLOP_PER_S * 1e3:.3f} ms) | {SMI['line']}")
     print(f"B3 per frame (both segments): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"cuFFT form {ms['cufft_both']:.3f} ms (median of {REPS}, CUDA events)")
     if not ok:
@@ -525,7 +622,8 @@ def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
             "max_rel_err": max(e[1] for e in errs.values()),
             "error_vs_c128": max(e[0] for e in c128_errs.values()),
             "plain_error_vs_c128": max(e[1] for e in c128_errs.values()),
-            "ms": kernel_ms, "plain_ms": plain_ms, "cufft_ms": ms["cufft_both"],
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "cufft_ms": ms["cufft_both"],
             "ms_by_segment": {k: ms[f"{k}_kernel"] for k in segments},
             "plain_ms_by_segment": {k: ms[f"{k}_plain"] for k in segments}}, tuple(outs)
 
@@ -558,15 +656,14 @@ def phase_cfar_g0(dev, chain, abs_rdms) -> dict:
               f"{'bit-identical' if n_diff == 0 else 'MISMATCH'}")
     if mismatched:
         fail(f"B1 at G0: {mismatched} kernel flags differ from the plain version")
-    fns = {}
-    for name, x in zip(("short", "long"), sums):
-        fns[f"{name}_kernel"] = lambda x=x: cascaded_cfar2d(x, cfg, n_clutter)
-        fns[f"{name}_plain"] = lambda x=x: plain_cfar(x, cfg, n_clutter)
-    ms = cuda_ms(fns)
-    print("B1 timing at G0 (median ms): " + " ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    by_seg = {name: b1_report(f"G0 {name}", x, cfg, n_clutter,
+                              lambda x=x: cascaded_cfar2d(x, cfg, n_clutter),
+                              lambda x=x: plain_cfar(x, cfg, n_clutter))
+              for name, x in zip(("short", "long"), sums)}
     return {"max_abs_err": max_abs, "mismatched_flags": mismatched,
-            "ms": ms["short_kernel"] + ms["long_kernel"],
-            "plain_ms": ms["short_plain"] + ms["long_plain"]}
+            **{k: sum(v[k] for v in by_seg.values())
+               for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bytes")},
+            "by_segment": by_seg}
 
 
 def write_g0_scene(root: str, prof, chain_cfg, rng) -> tuple[float, float]:
@@ -652,6 +749,8 @@ def phase_g0_slice(dev) -> dict:
             fail(f"G0: cli dmx rc {rc}, {len(stamps)} frames (want {len(G0_FREQ_INDEX)})")
         if min(launches.values()) < 1:
             fail(f"G0: a kernel did not run on the main path: {launches}")
+        if launches["cascaded_cfar2d"] != 2 * len(stamps):   # one B1 call per segment
+            fail(f"G0: {launches['cascaded_cfar2d']} B1 launches for {len(stamps)} frames")
         rate = (len(stamps) - 1) / (stamps[-1] - stamps[0])
         reader_cls = g1_reader_class()   # the one the CLI picked by default
         print(f"G0: cli dmx ({reader_cls.__name__}) {len(stamps)} frames in {wall:.2f} s "

@@ -3,9 +3,10 @@
 A second implementation of ``radar_signal_process_tpu`` beside it, with the
 same layout so each module's counterpart is found by name:
 
-* ``config`` / ``device`` / ``params`` — profiles (shared with the JAX
-  package), the device and float policy, and the chain's constants as
-  tensors;
+* ``config`` / ``device`` / ``params`` — profiles, the device and float
+  policy, and the chain's constants as tensors;
+* ``ingest`` / ``sim`` / ``utils`` — ``.bin`` readers (numpy and native
+  C++), the capture writers, pipeline counters;
 * ``ops``     — plain PyTorch DSP ops (FFT pulse compression, Doppler
   processing, notches, CA-CFAR, detection lists and measurement, spectral
   width, DBF, calibration tables);
@@ -16,9 +17,11 @@ same layout so each module's counterpart is found by name:
   streaming pipeline) and the G0 dual-beam chain;
 * ``cli``     — ``python -m radar_signal_process_tpu_torch.cli stream|dmx``.
 
-The port imports ``torch`` and never ``jax``.  Framework-free host code of
-the JAX package (profiles, ``.bin`` ingest, capture writers, calibration
-tables, counters) is imported from it rather than copied.
+The port imports ``torch`` and never ``jax``, and nothing of the JAX
+package: the host code it shares with it (profiles, ``.bin`` ingest, capture
+writers, calibration tables, counters) is its own copy, which the tests hold
+equal to the JAX package's.  Entry points run on the card unless the caller
+asks for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -6,18 +6,20 @@ cascaded_cfar2d_pallas``.  Flags are bit-identical to
 same summation order, division by float(r), f32 threshold product, edge
 fallback, strict ``>`` first-maximum cascade).
 
-On a CUDA tensor :func:`cascaded_cfar2d` launches ``csrc/cfar.cu`` once
-per pulse segment.  The kernel is bound by bytes (read the f32 RDM, write
-two byte-wide flag maps, ~0.35 GB per G2 window): each block stages a
-32 x 64 tile with its velocity and range halos in shared memory once and
-keeps the running sums, flags and winner offsets there, so each output byte
-is written once.  Global memory needs none of the Pallas kernel's VMEM
-range chunking.  On a CPU tensor it runs the plain ``ops.cfar`` version.
+On a CUDA tensor :func:`cascaded_cfar2d` launches ``csrc/cfar.cu`` once per
+call, over every pulse segment.  The kernel is bound by bytes (read the used
+f32 rows, write two byte-wide flag maps, ~0.33 GB per G2 window): a block
+streams a strip of columns down a band of rows, one thread a column, forms
+each window mean once, and stores each row's flags as it goes.
+:func:`cfar_plan` (plain Python, so the CPU tests reach it) cuts the
+segments into strips and bands.  On a CPU tensor the wrapper runs the plain ``ops.cfar`` version.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +29,116 @@ from radar_signal_process_tpu_torch.kernels import _build
 from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
 
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
+MAX_SEGMENTS = 32        # the kernel's segment table (csrc/cfar.cu kMaxSegments)
+PREFETCH, ROWS = 8, 4    # rows in flight, rows per step (csrc/cfar.cu kPrefetch, kRows)
+H100_SMS = 132
+STRIPS = (256, 128, 64)  # strip widths csrc/cfar.cu is built for, the widest first
+# the band model of cfar_plan, fitted to H100 runs of csrc/cfar.cu at the G2
+# and G0 shapes: a row step of a block takes STEP_LATENCY cycles plus
+# STEP_ISSUE for each warp resident on its SM; a step that only fills the
+# pipeline costs FILL_SHARE of one that decides cells
+STEP_LATENCY, STEP_ISSUE, FILL_SHARE = 100, 32, 0.3
+
+
+class CfarPlan(NamedTuple):
+    """Block map of one launch.  A block walks a band of ``band_rows``
+    cropped rows down a strip of ``tx`` columns with ``threads`` threads, one
+    a staged column; ``table`` holds one ``(col0, ns, first_block)`` per
+    segment, blocks of a segment run strip by strip, band fastest, and
+    ``grid.y`` is the batch."""
+
+    tx: int
+    band_rows: int
+    threads: int
+    table: Tuple[Tuple[int, int, int], ...]
+    n_bands: int
+    n_blocks: int
+    smem: int
+
+
+def smem_bytes(tx: int, r: int, g: int, e: int) -> int:
+    """Shared-memory bytes of one block (``csrc/cfar.cu`` layout: the ring of
+    staged rows, the ring of velocity means, the row's cascade flags)."""
+    sw = tx + 2 * (2 * e + r + g)
+    return (4 * ((PREFETCH + ROWS + g + r) * sw + (2 * g + r + 1 + ROWS) * (tx + 2 * e))
+            + ROWS * tx)
+
+
+def cfar_plan(
+    segments: Sequence[Tuple[int, int]], nvu: int, batch: int, cfg: CFARConfig,
+    n_sms: int = H100_SMS,
+) -> CfarPlan:
+    """The block map for ``segments`` over ``nvu`` cropped rows.
+
+    Strips are the widest of ``STRIPS`` that some segment fills more than
+    half of and that fits a block.  Each band restarts the velocity
+    pipeline, which costs 2(g+r) row steps; the band length minimises the
+    modelled time: the row steps of all blocks over the SMs' resident blocks,
+    at cycles a step that grow with the warps resident, plus the last
+    block's steps alone.
+    """
+    if not 1 <= len(segments) <= MAX_SEGMENTS:
+        raise ValueError(f"{len(segments)} segments outside 1..{MAX_SEGMENTS}")
+    widest = max(b - a for a, b in segments)
+    r, g, e = cfg.ref_cells, cfg.guard_cells, cfg.range_extend_cells
+    for tx in [w for w in STRIPS if 2 * widest > w] or STRIPS[-1:]:
+        threads = -(-(tx + 2 * (2 * e + r + g)) // 32) * 32
+        smem = smem_bytes(tx, r, g, e)
+        if threads <= 1024 and smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(
+            f"CFAR windows {cfg} need {threads} threads and {smem} B of shared memory "
+            f"a block (> 1024, {SMEM_LIMIT})"
+        )
+    strips = sum(-(-(b - a) // tx) for a, b in segments)
+    warps = threads // 32
+    per_sm = max(1, min(2048 // threads, 32, 233472 // (smem + 1024)))
+
+    def cost(band_rows):
+        blocks = batch * strips * -(-nvu // band_rows)
+        resident = min(per_sm, -(-blocks // n_sms))
+        steps = band_rows + FILL_SHARE * 2 * (g + r)
+        return (blocks * steps / (n_sms * resident)
+                * (STEP_LATENCY + resident * warps * STEP_ISSUE)
+                + steps * (STEP_LATENCY + warps * STEP_ISSUE))
+
+    band_rows = min({-(-nvu // n) for n in range(1, nvu + 1)}, key=lambda b: (cost(b), -b))
+    n_bands = -(-nvu // band_rows)
+    table, first = [], 0
+    for a, b in segments:
+        table.append((a, b - a, first))
+        first += -(-(b - a) // tx) * n_bands
+    return CfarPlan(tx, band_rows, threads, tuple(table), n_bands, first, smem)
+
+
+def plan_tile(plan: CfarPlan, block: int) -> Tuple[int, int, int, int, int]:
+    """``(col0, ns, x0, y_begin, y_end)`` of ``blockIdx.x == block``,
+    decoded as the kernel decodes it: the segment, its strip and band; the
+    block decides cropped rows ``[y_begin, y_end)`` of columns
+    ``[x0, x0 + tx)`` of the segment."""
+    s = 0
+    while s + 1 < len(plan.table) and block >= plan.table[s + 1][2]:
+        s += 1
+    col0, ns, first = plan.table[s]
+    ct, band = divmod(block - first, plan.n_bands)
+    return col0, ns, ct * plan.tx, band * plan.band_rows, (band + 1) * plan.band_rows
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_table(segments, nvu: int, batch: int, cfg: CFARConfig, n_sms: int):
+    """The plan of one launch and its segment table as the C entry point
+    takes it (col0[], ns[], first_block[]), built once per geometry."""
+    plan = cfar_plan(segments, nvu, batch, cfg, n_sms)
+    lib = _build.library()
+    r, g, e = cfg.ref_cells, cfg.guard_cells, cfg.range_extend_cells
+    if lib.rsp_cascaded_cfar_smem_bytes(plan.tx, r, g, e) != plan.smem:
+        raise RuntimeError("cascaded_cfar2d: csrc/cfar.cu and smem_bytes disagree")
+    table = (ctypes.c_int * (3 * len(plan.table) + 1))(
+        *(c for c, _, _ in plan.table), *(w for _, w, _ in plan.table),
+        *(f for _, _, f in plan.table), plan.n_blocks,
+    )
+    return plan, table
 
 
 def cascaded_cfar2d(
@@ -40,7 +152,7 @@ def cascaded_cfar2d(
     ``segments`` (half-open column ranges tiling ``[0, n_range)`` once
     clipped to it, default one segment) each get their own range axis, as
     in ``segmented_cfar``.
-    CPU tensor: the plain version.  CUDA tensor: the kernel, or an
+    CPU tensor: the plain version.  CUDA tensor: one kernel launch, or an
     exception; ``cascaded_cfar2d.launches`` counts the kernel launches.
     """
     nv, nr = rdm.shape[-2], rdm.shape[-1]
@@ -72,22 +184,18 @@ def cascaded_cfar2d(
     if not 0 < batch <= 65535:
         raise ValueError(f"cascaded_cfar2d: batch {batch} outside 1..65535")
 
-    lib = _build.library()
-    r, g, e = cfg.ref_cells, cfg.guard_cells, cfg.range_extend_cells
-    smem = lib.rsp_cascaded_cfar_smem_bytes(r, g, e)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"CFAR tile needs {smem} B of shared memory (> {SMEM_LIMIT})")
+    n_sms = torch.cuda.get_device_properties(rdm.device).multi_processor_count
+    plan, table = _launch_table(segments, nvu, batch, cfg, n_sms)
     flags = torch.empty(rdm.shape, dtype=torch.bool, device=rdm.device)
     vflags = torch.empty(rdm.shape, dtype=torch.bool, device=rdm.device)
     stream = torch.cuda.current_stream(rdm.device).cuda_stream
-    t = float(cfg.threshold)
-    for a, b in segments:
-        rc = lib.rsp_cascaded_cfar(
-            rdm.data_ptr(), flags.data_ptr(), vflags.data_ptr(), batch, nv, nr,
-            lo, nvu, a, b - a, r, g, cfg.method, t, e, int(cfg.range_detect), stream,
-        )
-        _build.check(rc, "rsp_cascaded_cfar")
-        cascaded_cfar2d.launches += 1
+    rc = _build.library().rsp_cascaded_cfar(
+        rdm.data_ptr(), flags.data_ptr(), vflags.data_ptr(), batch, nv, nr, lo, nvu,
+        len(plan.table), table, plan.tx, plan.band_rows, cfg.ref_cells, cfg.guard_cells,
+        cfg.method, float(cfg.threshold), cfg.range_extend_cells, int(cfg.range_detect), stream,
+    )
+    _build.check(rc, "rsp_cascaded_cfar")
+    cascaded_cfar2d.launches += 1
     return flags, vflags
 
 

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from radar_signal_process_tpu_torch.config import RadarProfile
+from radar_signal_process_tpu_torch.device import resolve_device
 from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
 from radar_signal_process_tpu_torch.ops.measure import DetectionList, extract_detections
 from radar_signal_process_tpu_torch.params import ChainParams, chain_params
@@ -78,10 +79,13 @@ def make_detector(
     n_clutter: int | None = None,
     clutter_v: float = 3.0,
     max_detections: int = 64,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> Detector:
-    """:class:`Detector` for ``profile`` with its buffer on ``device``;
-    ``n_clutter`` defaults to :func:`clutter_cells` of the Doppler extent."""
+    """:class:`Detector` for ``profile`` with its buffer on ``device`` (the
+    card unless the caller asks for the CPU; a CUDA device that is absent
+    raises); ``n_clutter`` defaults to :func:`clutter_cells` of the Doppler
+    extent."""
+    device = resolve_device(device)
     n_fft = profile.mtd.fft_length or profile.prt_per_frame
     if n_clutter is None:
         n_clutter = clutter_cells(profile, n_fft, clutter_v)

@@ -81,7 +81,9 @@ class G0FrameResult(NamedTuple):
 
 
 class G0Chain(nn.Module):
-    """G0 per-frame processor with its constants as buffers on ``device``.
+    """G0 per-frame processor with its constants as buffers on ``device``
+    (the card unless the caller asks for the CPU; a CUDA device that is
+    absent raises).
 
     ``freq_index``/``beam_pos`` are the defaults; :meth:`process_frame`
     takes per-frame values (parsed from each frame's header), so a
@@ -100,7 +102,7 @@ class G0Chain(nn.Module):
         max_detections: int = 32,
         spectral_width_db: float | None = None,
         spectral_width_interp: int = 1,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         super().__init__()
         self.profile = profile

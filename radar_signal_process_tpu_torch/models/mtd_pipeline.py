@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from radar_signal_process_tpu_torch.config import RadarProfile, matlab_round
+from radar_signal_process_tpu_torch.device import resolve_device
 from radar_signal_process_tpu_torch.kernels.rdm import doppler_rdm
 from radar_signal_process_tpu_torch.ops.mtd import istc_compensate, mti_cancel, notch_rows
 from radar_signal_process_tpu_torch.ops.pulse_compression import (
@@ -111,10 +112,12 @@ def make_frame_processor(
     win_size: int = 4,
     stc_curve_db=None,
     pulses=None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> FrameProcessor:
-    """:class:`FrameProcessor` for ``profile`` with its buffers on ``device``."""
+    """:class:`FrameProcessor` for ``profile`` with its buffers on ``device``
+    (the card unless the caller asks for the CPU; a CUDA device that is
+    absent raises)."""
     params = chain_params(
-        profile, pulses=pulses, stc_curve_db=stc_curve_db, device=device
+        profile, pulses=pulses, stc_curve_db=stc_curve_db, device=resolve_device(device)
     )
     return FrameProcessor(profile, params, win_size)

@@ -22,13 +22,13 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
-from radar_signal_process_tpu.utils.logging import Counters
 from radar_signal_process_tpu_torch.config import RadarProfile
 from radar_signal_process_tpu_torch.device import resolve_device
 from radar_signal_process_tpu_torch.models.detect import Detector, clutter_cells
 from radar_signal_process_tpu_torch.models.mtd_pipeline import FrameProcessor
 from radar_signal_process_tpu_torch.ops.dbf import apply_dbf
 from radar_signal_process_tpu_torch.params import chain_params
+from radar_signal_process_tpu_torch.utils import Counters
 
 EMIT_MODES = ("full", "flags", "detections")
 
@@ -45,7 +45,7 @@ class StreamingPipeline:
     """Iterate detection results over a continuous capture.
 
     ``reader`` is any object with ``read_frame(idx) -> FrameResult``
-    (``radar_signal_process_tpu.ingest.G2FrameReader`` or
+    (``radar_signal_process_tpu_torch.ingest.G2FrameReader`` or
     ``NativeG2FrameReader``).  ``emit`` selects what each
     :class:`StreamResult` carries: ``"full"`` (RDM + flag stacks),
     ``"flags"`` (no RDMs) or ``"detections"`` (neither).  ``device`` is

@@ -36,6 +36,7 @@ from radar_signal_process_tpu.ops import spectrum as jspectrum
 from radar_signal_process_tpu.ops.waveforms import reference_pulses
 from radar_signal_process_tpu.sim.packets_synth import write_g1_capture
 from radar_signal_process_tpu_torch import cli as tcli
+from radar_signal_process_tpu_torch import config as tconfig
 from radar_signal_process_tpu_torch.kernels import pc_rdm as tpcr
 from radar_signal_process_tpu_torch.kernels.rdm import dft_planes
 from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
@@ -46,10 +47,12 @@ from radar_signal_process_tpu_torch.ops import pulse_compression as tpc
 from radar_signal_process_tpu_torch.ops import spectrum as tspectrum
 from radar_signal_process_tpu_torch.params import g0_chain_params
 from tests.test_cli_dmx import _g0_capture
+from tests.test_torch_import import as_config
 
 torch.set_num_threads(2)
 
 PROF, CFG = G0_PROFILE, G0ChainConfig()
+TPROF, TCFG = as_config(PROF, tconfig), as_config(CFG, tconfig)   # the port's own
 FD = -60 * PROF.prf / CFG.mtd_fft_length      # the known-good target: -60 Doppler bins
 R_LONG = 100 * PROF.delta_r + CFG.r_sys_err_long - CFG.r_measure_err_long
 
@@ -138,7 +141,7 @@ def test_fused_pc_rdm_plain_matches_pallas(rng, case):
 def test_fused_pc_rdm_plain_matches_pallas_at_g0(rng, segment):
     """Full G0 geometry, both beams; the port reads the segment in place."""
     jc = JaxG0Chain(PROF, CFG, 5, 0)
-    params = g0_chain_params(PROF, CFG)
+    params = g0_chain_params(TPROF, TCFG)
     beams = _echo(rng, (2, PROF.prt_per_frame, PROF.point_prt))
     ps = PROF.segment_points[0]
     sl = slice(0, ps) if segment == "short" else slice(ps, None)
@@ -183,7 +186,7 @@ def test_g0_pulse_compression_matches_jax_pc(rng):
     """``G0Chain.pc`` (FIR + 512-point matched filter) against the JAX ``_pc``."""
     left, right = _echo(rng, (2, PROF.prt_per_frame, PROF.point_prt))
     want_s, want_l = JaxG0Chain(PROF, CFG, 5, 0)._pc(jnp.asarray(left), jnp.asarray(right))
-    chain = G0Chain(PROF, CFG, 5, 0)
+    chain = G0Chain(TPROF, TCFG, 5, 0, device="cpu")
     got_s, got_l = chain.pc(chain.beams(left, right))
     for got, want in ((got_s, want_s), (got_l, want_l)):
         want = np.asarray(want)
@@ -194,7 +197,7 @@ def test_g0_pulse_compression_matches_jax_pc(rng):
 def test_b3_plain_matches_its_cufft_form(rng):
     """B3's plain version against its cuFFT form (``G0Chain.front_fft``) at
     the JAX package's 5e-5 * peak."""
-    chain = G0Chain(PROF, CFG, 5, 0)
+    chain = G0Chain(TPROF, TCFG, 5, 0, device="cpu")
     beams = chain.beams(*_echo(rng, (2, PROF.prt_per_frame, PROF.point_prt)))
     for got, want in zip(chain.front(beams), chain.front_fft(beams)):
         assert got.shape == want.shape
@@ -299,7 +302,7 @@ def test_g0_chain_params_equal_jax_attributes(rng, waveform):
         kw = dict(match_waveform=rng.standard_normal(50) + 1j * rng.standard_normal(50),
                   power_norm=False)
     jc = JaxG0Chain(PROF, CFG, 5, 0, **kw)
-    p = g0_chain_params(PROF, CFG, **kw)
+    p = g0_chain_params(TPROF, TCFG, **kw)
     f32 = np.float32
     np.testing.assert_array_equal(p.match_spec.numpy(), jc._match_spec.astype(np.complex64))
     np.testing.assert_array_equal(p.pc_long_re.numpy(), jc._pc_matrix_long.real.astype(f32))
@@ -325,7 +328,7 @@ def test_g0_chain_process_frame_matches_jax(rng):
     hit of this frame is listed and the sets do not hinge on top-k order)."""
     left, right = _target_frame(rng)
     jc = JaxG0Chain(PROF, CFG, 5, 2, max_detections=64)
-    tc = G0Chain(PROF, CFG, 5, 2, max_detections=64)
+    tc = G0Chain(TPROF, TCFG, 5, 2, max_detections=64, device="cpu")
     want = jc.process_frame(left, right)
     got = tc.process_frame(left, right)
     assert tc.n_clutter == jc.n_clutter
@@ -341,7 +344,7 @@ def test_g0_chain_process_frame_matches_jax(rng):
         jf, jv = jcfar.cascaded_cfar2d(jnp.asarray(g_sum.numpy()), PROF.cfar, tc.n_clutter)
         np.testing.assert_array_equal(getattr(got, f"flags_{seg}").numpy(), np.asarray(jf))
         np.testing.assert_array_equal(getattr(got, f"vflags_{seg}").numpy(), np.asarray(jv))
-        pf, _ = tcfar.cascaded_cfar2d(torch.from_numpy(np.array(w_sum)), PROF.cfar,
+        pf, _ = tcfar.cascaded_cfar2d(torch.from_numpy(np.array(w_sum)), TPROF.cfar,
                                       jc.n_clutter)
         np.testing.assert_array_equal(pf.numpy(), np.asarray(getattr(want, f"flags_{seg}")))
         # C4: valid detections as sets
@@ -373,11 +376,11 @@ def test_g0_chain_per_frame_agility(rng):
     """process_frame(freq_index=, beam_pos=) equals a chain built fixed at
     those values, and the per-frame constants equal the JAX chain's."""
     left, right = _target_frame(rng)
-    agile = G0Chain(PROF, CFG, freq_index=5, beam_pos=0)
+    agile = G0Chain(TPROF, TCFG, freq_index=5, beam_pos=0, device="cpu")
     jax_agile = JaxG0Chain(PROF, CFG, freq_index=5, beam_pos=0)
     for fi, bp in ((0, 1), (10, 3)):
         got = agile.process_frame(left, right, freq_index=fi, beam_pos=bp)
-        fixed = G0Chain(PROF, CFG, freq_index=fi, beam_pos=bp)
+        fixed = G0Chain(TPROF, TCFG, freq_index=fi, beam_pos=bp, device="cpu")
         want = fixed.process_frame(left, right)
         for field in ("range_m", "velocity_ms", "elevation_deg", "valid"):
             assert torch.equal(getattr(got.measurements_long, field),
@@ -392,7 +395,7 @@ def test_g0_chain_per_frame_agility(rng):
 
 @pytest.mark.parametrize("fi,bp", [(-1, 0), (11, 0), (0, 12), (99, 99)])
 def test_g0_chain_rejects_out_of_table_indices(fi, bp):
-    chain = G0Chain(PROF, CFG)
+    chain = G0Chain(TPROF, TCFG, device="cpu")
     with pytest.raises(ValueError, match="calibration tables"):
         chain.frame_params(fi, bp)
 
@@ -486,7 +489,8 @@ def test_g0_chain_on_a_reduced_profile_matches_jax(rng):
     left = (4000.0 * base + noise[0]).astype(np.complex64)
     right = (3000.0 * base + noise[1]).astype(np.complex64)
     want = JaxG0Chain(prof, cfg, 3, 1).process_frame(left, right)
-    got = G0Chain(prof, cfg, 3, 1).process_frame(left, right)
+    got = G0Chain(as_config(prof, tconfig), as_config(cfg, tconfig), 3, 1,
+                  device="cpu").process_frame(left, right)
     for seg in ("short", "long"):
         w_sum = np.asarray(getattr(want, f"rdm_sum_{seg}"))
         g_sum = getattr(got, f"rdm_sum_{seg}")

@@ -191,8 +191,77 @@ def test_cascaded_cfar2d_kernel_segments(rng, cuda_device):
     before = kcfar.cascaded_cfar2d.launches
     got = kcfar.cascaded_cfar2d(x, G2_PROFILE.cfar, 2, segs)
     want = tcfar.segmented_cfar(x, segs, G2_PROFILE.cfar, 2)
-    assert kcfar.cascaded_cfar2d.launches == before + 3
+    assert kcfar.cascaded_cfar2d.launches == before + 1   # one launch for all segments
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _g2_crafted(rng, batch, nr=3404, segments=G2_PROFILE.cfar_segments, n_clutter=13):
+    """G2-geometry RDMs (332 rows): the divisor-20 re-notch band of zero
+    rows, exact ties, hits on every segment's edge columns, and a block of
+    equal cells around one cell exactly on its threshold."""
+    rdm = np.abs(rng.standard_normal((batch, 332, nr), dtype=np.float32)) + 0.5
+    rdm[:, 148:183] = 0.0
+    lo, hi = n_clutter + 1, 332 - n_clutter
+    for b in range(batch):
+        v, r = rng.integers(lo, hi, 400), rng.integers(0, nr - 1, 400)
+        rdm[b, v, r] += 40.0
+        rdm[b, v[::2], r[::2] + 1] = rdm[b, v[::2], r[::2]]      # exact ties
+        for a, e in segments:
+            rdm[b, rng.integers(lo, hi, 4), [a, a + 1, e - 2, e - 1]] += 40.0
+    rdm[0, 60:124, nr - 80 : nr - 16] = _on_threshold(rng)   # its cell: (90, nr - 50)
+    return rdm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 52])
+@pytest.mark.parametrize("cfg", [G2_PROFILE.cfar, CFARConfig(threshold=5.0, range_extend_cells=2),
+                                 CFARConfig(threshold=5.0, range_detect=False)],
+                         ids=["g2-cfar", "E2", "no-range-pass"])
+def test_cascaded_cfar2d_kernel_g2_geometry(rng, cuda_device, batch, cfg):
+    """Full G2 geometry (332 x 3404, three segments, the third starting at
+    the misaligned column 951), batch 1 and the 52 of one window."""
+    x = torch.from_numpy(_g2_crafted(rng, batch)).to(cuda_device)
+    before = kcfar.cascaded_cfar2d.launches
+    got = kcfar.cascaded_cfar2d(x, cfg, 13, G2_PROFILE.cfar_segments)
+    want = tcfar.segmented_cfar(x, G2_PROFILE.cfar_segments, cfg, 13)
+    assert kcfar.cascaded_cfar2d.launches == before + 1
+    assert int(want[0].sum()) > 0 and bool(want[1][0, 90, 3354])   # the on-threshold cell
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# segments narrower than the 14-column range halo, misaligned starts, a row
+# width that is not a multiple of 4, and every strip width of the build
+SEGMENT_CASES = {
+    "narrow-and-misaligned": (704, ((0, 5), (5, 13), (13, 700), (700, 704))),
+    "one-column": (400, ((0, 1), (1, 137), (137, 138), (138, 400))),
+    "odd-width": (411, ((0, 3), (3, 229), (229, 411))),
+    "strips-of-128": (200, ((0, 100), (100, 200))),   # the 128-column build
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
+def test_cascaded_cfar2d_kernel_narrow_misaligned_segments(rng, cuda_device, case):
+    nr, segments = SEGMENT_CASES[case]
+    x = torch.from_numpy(_g2_crafted(rng, 3, nr, segments)).to(cuda_device)
+    for cfg in (G2_PROFILE.cfar, CFARConfig(ref_cells=8, guard_cells=2, threshold=4.0,
+                                            range_extend_cells=3)):
+        before = kcfar.cascaded_cfar2d.launches
+        got = kcfar.cascaded_cfar2d(x, cfg, 13, segments)
+        want = tcfar.segmented_cfar(x, segments, cfg, 13)
+        assert kcfar.cascaded_cfar2d.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cascaded_cfar2d_smem_matches_plan(cuda_device):
+    """The shared memory the kernel lays out is what cfar_plan sized."""
+    from radar_signal_process_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for tx in kcfar.STRIPS:
+        for r, g, e in ((5, 7, 1), (1, 0, 0), (8, 2, 3), (5, 7, 127)):
+            assert lib.rsp_cascaded_cfar_smem_bytes(tx, r, g, e) == kcfar.smem_bytes(tx, r, g, e)
 
 
 @pytest.mark.gpu
@@ -242,7 +311,7 @@ def test_stream_on_card_matches_cpu(tmp_path, rng, cuda_device):
     launches = (krdm.doppler_rdm.launches, kcfar.cascaded_cfar2d.launches)
     got = run(cuda_device)
     assert krdm.doppler_rdm.launches == launches[0] + 2
-    assert kcfar.cascaded_cfar2d.launches == launches[1] + 6
+    assert kcfar.cascaded_cfar2d.launches == launches[1] + 2   # one per window
     want = run("cpu")
     detector = make_detector(prof, device="cpu")   # plain CFAR
     for (g_rdm, g_flags, g_hits), (w_rdm, _, _) in zip(got, want):

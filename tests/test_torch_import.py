@@ -1,18 +1,41 @@
-"""The port runs where jax cannot be imported; chip_smoke.py refuses to run
-without a GPU."""
+"""The port stands alone: it runs where jax and the JAX package cannot be
+imported, its copies of the JAX package's host code (profiles, ``.bin``
+readers) equal the originals, its entry points default to the card, and
+chip_smoke.py refuses to run without a GPU."""
 
 import ast
+import dataclasses
 import pathlib
 import re
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "radar_signal_process_tpu_torch"
+
+
+def as_config(obj, module):
+    """``obj`` rebuilt field by field from the same-named classes of
+    ``module`` (either package's ``config``), nested dataclasses included;
+    any other value is returned as it is.  The parity tests hand each
+    package its own profile and config objects through this."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = getattr(module, type(obj).__name__)
+        return cls(**{f.name: as_config(getattr(obj, f.name), module)
+                      for f in dataclasses.fields(obj)})
+    return obj
+
+
+def _port_sources():
+    built = PACKAGE / "kernels" / "_build"   # build outputs, not sources
+    sources = sorted(p for p in PACKAGE.rglob("*.py") if built not in p.parents)
+    return sources + [REPO / "chip_smoke.py"]
+
 
 _JAX_FREE = r"""
 import sys
@@ -157,6 +180,228 @@ def test_g0_slice_runs_with_jax_unimportable():
     assert proc.stdout.strip().endswith("g0 jax-free ok")
 
 
+_PACKAGE_FREE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["radar_signal_process_tpu"] = None   # the JAX package, blocked
+import ast
+import dataclasses
+import importlib
+import pathlib
+import pkgutil
+import tempfile
+
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+import chip_smoke  # noqa: F401
+import radar_signal_process_tpu_torch as port
+
+for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(info.name)
+smoke_imports = set()
+for node in ast.walk(ast.parse(pathlib.Path(chip_smoke.__file__).read_text())):
+    if isinstance(node, ast.Import):
+        smoke_imports.update(a.name for a in node.names)
+    elif isinstance(node, ast.ImportFrom):
+        smoke_imports.add(node.module)
+for name in sorted(smoke_imports):
+    importlib.import_module(name)
+from radar_signal_process_tpu_torch.config import G0_PROFILE, G2_PROFILE, G0ChainConfig
+from radar_signal_process_tpu_torch.ingest import g2_reader_class
+from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
+from radar_signal_process_tpu_torch.models.streaming import StreamingPipeline
+from radar_signal_process_tpu_torch.ops.waveforms import reference_pulses
+from radar_signal_process_tpu_torch.sim import write_g2_capture
+
+# the small G2 slice: capture -> reader -> stream -> detections
+prof = dataclasses.replace(
+    G2_PROFILE, prt_per_frame=16, point_prt=128, segment_points=(24, 40, 64),
+    cfar_segments=((0, 24), (24, 64), (64, 128)), n_channels=2, n_beams=2,
+)
+rng = np.random.default_rng(2)
+shape = (3, 16, 128, 2)
+iq = (rng.integers(-300, 300, shape) + 1j * rng.integers(-300, 300, shape)).astype(np.complex64)
+iq[:, :, 90, 1] += 20000.0 * np.exp(1j * 2 * np.pi * 0.25 * np.arange(48)).reshape(3, 16)
+with tempfile.TemporaryDirectory() as root:
+    write_g2_capture(root, iq, prof, data_type=1)
+    pipe = StreamingPipeline(g2_reader_class()(root, prof), prof, win_size=2, max_frames=3,
+                             clutter_v=1e-6, max_detections=4, device="cpu")
+    results = list(pipe)
+assert [r.frame_idx for r in results] == [0, 1]
+assert all(r.rdms.shape == (2, 2, 16, 128) and bool(torch.isfinite(r.rdms).all())
+           for r in results)
+assert all(r.cfar_hits > 0 and bool(r.detections.valid.any()) for r in results)
+
+# the reduced G0 chain: 128 PRT, 62 + 120 samples, 256-point MTD
+g0 = dataclasses.replace(G0_PROFILE, prt_per_frame=128, point_prt=182, segment_points=(62, 120))
+cfg = dataclasses.replace(G0ChainConfig(), pc_fft_length=128, mtd_fft_length=256)
+_, p_long = reference_pulses(g0)
+base = np.zeros((128, 182), complex)
+base[:, 82 : 82 + len(p_long)] += np.exp(1j * 2 * np.pi * 0.1 * np.arange(128))[:, None] * p_long
+noise = rng.standard_normal((2, 128, 182)) * 30.0
+res = G0Chain(g0, cfg, 3, 1, device="cpu").process_frame(4000 * base + noise[0],
+                                                          3000 * base + noise[1])
+assert res.rdm_sum_long.shape == (256, 128) and bool(res.measurements_long.valid[0])
+assert sys.modules["radar_signal_process_tpu"] is None and sys.modules["jax"] is None
+assert not [m for m in sys.modules if m.startswith(("radar_signal_process_tpu.", "jax."))]
+print("package-free ok")
+"""
+
+
+def test_port_runs_with_the_jax_package_unimportable():
+    """With ``radar_signal_process_tpu`` (and jax) blocked, every module of
+    the port and every module chip_smoke.py imports load, and the small G2
+    slice and the reduced G0 chain run on the CPU."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _PACKAGE_FREE], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("package-free ok")
+
+
+def test_no_jax_package_import_or_path_load_in_port_sources():
+    """No port source and not chip_smoke.py imports ``radar_signal_process_tpu``
+    (without the ``_torch`` suffix) or loads a file by path."""
+    imports = re.compile(
+        r"^\s*(from|import)\s+radar_signal_process_tpu(?!_torch)\b"
+        r"|import_module\(\s*['\"]radar_signal_process_tpu(?!_torch)\b",
+        re.MULTILINE,
+    )
+    offenders = [str(p.relative_to(REPO)) for p in _port_sources()
+                 if imports.search(p.read_text()) or "spec_from_file_location" in p.read_text()]
+    assert offenders == []
+    assert not (PACKAGE / "_reference.py").exists()
+
+
+_CONFIG_NAMES = ("G0_PROFILE", "G1_PROFILE", "G2_PROFILE", "CFARConfig", "MTDConfig",
+                 "G0ChainConfig", "RadarProfile")
+
+
+@pytest.mark.parametrize("name", _CONFIG_NAMES)
+def test_port_config_equals_the_jax_package(name):
+    """Each profile and config class of the port equals the JAX package's
+    field by field (defaults of the classes, every field of the profiles,
+    nested configs included), and ``as_config`` maps one onto the other."""
+    from radar_signal_process_tpu import config as jconfig
+    from radar_signal_process_tpu_torch import config as tconfig
+
+    got, want = getattr(tconfig, name), getattr(jconfig, name)
+    assert got is not want
+    if isinstance(want, type):
+        assert [(f.name, f.type, f.default) for f in dataclasses.fields(got)] == [
+            (f.name, f.type, f.default if not dataclasses.is_dataclass(f.default)
+             else as_config(f.default, tconfig)) for f in dataclasses.fields(want)]
+        assert [n for n in vars(got) if not n.startswith("__")] == [
+            n for n in vars(want) if not n.startswith("__")]
+        return
+    assert type(got) is tconfig.RadarProfile
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert as_config(want, tconfig) == got and as_config(got, jconfig) == want
+    for prop in ("prf", "wavelength", "delta_r", "pulse_samples", "chirp_slopes",
+                 "segment_starts"):
+        assert getattr(got, prop) == getattr(want, prop), prop
+    assert got.delta_v(2048) == want.delta_v(2048)
+    assert tconfig.PROFILES[got.name] is got and jconfig.PROFILES[want.name] is want
+
+
+def test_port_config_constants_equal_the_jax_package():
+    from radar_signal_process_tpu import config as jconfig
+    from radar_signal_process_tpu_torch import config as tconfig
+
+    for name in ("C_LIGHT", "NARROW_PULSE_FIR_TAPS", "G1_RANGE_CONCAT"):
+        assert getattr(tconfig, name) == getattr(jconfig, name), name
+    assert set(tconfig.PROFILES) == set(jconfig.PROFILES)
+    for x in (-2.5, -0.5, 0.0, 0.49999, 0.5, 1.5, 2.5, 1e9 + 0.5):
+        assert tconfig.matlab_round(x) == jconfig.matlab_round(x)
+
+
+def _g2_capture(root, profile, rng):
+    shape = (3, profile.prt_per_frame, profile.point_prt, profile.n_channels)
+    iq = rng.integers(-900, 900, shape) + 1j * rng.integers(-900, 900, shape)
+    from radar_signal_process_tpu_torch.sim import write_g2_capture
+
+    # boundaries inside packets exercise the cross-file splicing
+    write_g2_capture(root, iq, profile, data_type=1, file_sizes=[5000, 7777, 12000])
+
+
+def _g1_capture(root, rng):
+    from radar_signal_process_tpu_torch.sim import write_g1_capture
+
+    shape = (3, 12, 40)
+    left = rng.integers(-90000, 90000, shape) + 1j * rng.integers(-90000, 90000, shape)
+    right = rng.integers(-90000, 90000, shape) + 1j * rng.integers(-90000, 90000, shape)
+    write_g1_capture(root, left, right, frames_per_file=2, freq_index=[3, 7, 1],
+                     beam_pos=[0, 5, 2])
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["python", "native"])
+def test_port_g2_readers_equal_the_jax_package(tmp_path, rng, native):
+    """On a seeded capture written by the port's writer, the port's G2
+    reader (native C++ or Python) yields the same frames as the JAX
+    package's Python reader, the reference form of both."""
+    from radar_signal_process_tpu import config as jconfig
+    from radar_signal_process_tpu import ingest as jingest
+    from radar_signal_process_tpu_torch import config as tconfig
+    from radar_signal_process_tpu_torch import ingest as tingest
+
+    prof = dataclasses.replace(tconfig.G2_PROFILE, prt_per_frame=6, point_prt=50,
+                               segment_points=(10, 15, 25), n_channels=3)
+    _g2_capture(str(tmp_path), prof, rng)
+    assert tingest.native_available()
+    t_cls = tingest.g2_reader_class(native)
+    assert t_cls is (tingest.NativeG2FrameReader if native else tingest.G2FrameReader)
+    got = t_cls(str(tmp_path), prof)
+    want = jingest.G2FrameReader(str(tmp_path), as_config(prof, jconfig))
+    for idx in range(4):
+        g, w = got.read_frame(idx), want.read_frame(idx)
+        assert (g.frame_completed, g.eos) == (w.frame_completed, w.eos) == (idx < 3, idx == 3)
+        if idx < 3:
+            np.testing.assert_array_equal(g.iq, w.iq)
+            np.testing.assert_array_equal(g.servo_angle, w.servo_angle)
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["python", "native"])
+def test_port_g1_readers_equal_the_jax_package(tmp_path, rng, native):
+    from radar_signal_process_tpu import ingest as jingest
+    from radar_signal_process_tpu_torch import ingest as tingest
+
+    _g1_capture(str(tmp_path), rng)
+    assert tingest.native_available()
+    t_cls = tingest.g1_reader_class(native)
+    assert t_cls is (tingest.NativeG1FrameReader if native else tingest.G1FrameReader)
+    got = t_cls(str(tmp_path), 12, 40, 2)
+    want = jingest.G1FrameReader(str(tmp_path), 12, 40, 2)
+    for idx in (1, 2, 3):
+        g, w = got.read_frame(idx), want.read_frame(idx)
+        for a, b in zip(g[:3], w[:3]):
+            np.testing.assert_array_equal(a, b)
+        assert g[3] == w[3] and g[3]["freq_index"] == (3, 7, 1)[idx - 1]
+
+
+@pytest.mark.parametrize("entry", ["make_detector", "make_frame_processor", "G0Chain"])
+def test_entry_points_default_to_the_card(entry):
+    """Without a card the entry points' default device raises (nothing moves
+    to the CPU silently); asked for the CPU, they build there."""
+    from radar_signal_process_tpu_torch.config import G0_PROFILE, G2_PROFILE
+    from radar_signal_process_tpu_torch.models.detect import make_detector
+    from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
+    from radar_signal_process_tpu_torch.models.mtd_pipeline import make_frame_processor
+
+    small = dataclasses.replace(G2_PROFILE, prt_per_frame=16, point_prt=128,
+                                segment_points=(24, 40, 64), n_channels=2, n_beams=2)
+    build = {"make_detector": lambda **kw: make_detector(small, **kw),
+             "make_frame_processor": lambda **kw: make_frame_processor(small, 2, **kw),
+             "G0Chain": lambda **kw: G0Chain(G0_PROFILE, **kw)}[entry]
+    assert next(iter(build(device="cpu").buffers())).device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the default would build there")
+    with pytest.raises(RuntimeError, match="is_available"):
+        build()
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches the JAX package's host code only through the
     port's own modules, and loads no file of it by path."""
@@ -175,9 +420,7 @@ def test_chip_smoke_imports_only_the_port():
 
 def test_no_jax_import_in_port_sources():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.MULTILINE)
-    built = PACKAGE / "kernels" / "_build"   # build outputs, not sources
-    sources = sorted(p for p in PACKAGE.rglob("*.py") if built not in p.parents)
-    sources.append(REPO / "chip_smoke.py")
+    sources = _port_sources()
     assert len(sources) > 10
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []

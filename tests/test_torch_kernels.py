@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from radar_signal_process_tpu.config import G2_PROFILE, CFARConfig
+from radar_signal_process_tpu import config as jconfig
 from radar_signal_process_tpu.kernels import cascaded_cfar2d_pallas, doppler_rdm_pallas
 from radar_signal_process_tpu.ops import cfar as jcfar
 from radar_signal_process_tpu.ops import mtd as jmtd
+from radar_signal_process_tpu_torch.config import G2_PROFILE, CFARConfig
 from radar_signal_process_tpu_torch.kernels import _build
 from radar_signal_process_tpu_torch.kernels import cfar as kcfar
 from radar_signal_process_tpu_torch.kernels import pc_rdm as kpcr
@@ -24,6 +25,7 @@ from radar_signal_process_tpu_torch.ops import cfar as tcfar
 from radar_signal_process_tpu_torch.ops import mtd as tmtd
 from radar_signal_process_tpu_torch.ops.windows import make_window
 from tests.test_torch_gpu import INPUTS, _on_threshold, _rdm, _ties
+from tests.test_torch_import import as_config
 
 torch.set_num_threads(2)
 
@@ -104,8 +106,9 @@ def test_doppler_rdm_cpu_dispatch_and_validation(rng):
 def test_cascaded_cfar2d_plain_bit_equal(rng, case):
     make, n_clutter, cfg = INPUTS[case]
     rdm = make(rng)
-    want_f, want_v = jcfar.cascaded_cfar2d(jnp.asarray(rdm), cfg, n_clutter)
-    pal_f, pal_v = cascaded_cfar2d_pallas(jnp.asarray(rdm), cfg, n_clutter, interpret=True)
+    jcfg = as_config(cfg, jconfig)
+    want_f, want_v = jcfar.cascaded_cfar2d(jnp.asarray(rdm), jcfg, n_clutter)
+    pal_f, pal_v = cascaded_cfar2d_pallas(jnp.asarray(rdm), jcfg, n_clutter, interpret=True)
     got_f, got_v = kcfar.cascaded_cfar2d(torch.from_numpy(rdm), cfg, n_clutter)
     for got, want in ((got_v, want_v), (got_f, want_f), (got_v, pal_v), (got_f, pal_f)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -118,14 +121,14 @@ def test_cascaded_cfar2d_on_threshold_follows_ops_cfar(rng):
     higher and drops it — a fault of that reference kernel (ROADMAP C1); it
     agrees with the port on every other cell."""
     rdm = _on_threshold(rng)
-    cfg = CFARConfig(threshold=5.0)
-    want_f, want_v = jcfar.cascaded_cfar2d(jnp.asarray(rdm), cfg, 3)
+    cfg, jcfg = CFARConfig(threshold=5.0), jconfig.CFARConfig(threshold=5.0)
+    want_f, want_v = jcfar.cascaded_cfar2d(jnp.asarray(rdm), jcfg, 3)
     got_f, got_v = kcfar.cascaded_cfar2d(torch.from_numpy(rdm), cfg, 3)
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
     assert got_f[30, 30] and got_v[30, 30]
     pal_f, pal_v = (np.asarray(x).copy() for x in cascaded_cfar2d_pallas(
-        jnp.asarray(rdm), cfg, 3, interpret=True))
+        jnp.asarray(rdm), jcfg, 3, interpret=True))
     for got, pal in ((got_f, pal_f), (got_v, pal_v)):
         diff = np.argwhere(got.numpy() != pal)
         assert diff.tolist() in ([], [[30, 30]])
@@ -137,10 +140,68 @@ def test_cascaded_cfar2d_segments_cpu_dispatch(rng):
     rdm = np.stack([_rdm(rng, nv=48, nr=3404, hits=40) for _ in range(2)])
     before = kcfar.cascaded_cfar2d.launches
     got_f, got_v = kcfar.cascaded_cfar2d(torch.from_numpy(rdm), G2_PROFILE.cfar, 2, segs)
-    want_f, want_v = jcfar.segmented_cfar(jnp.asarray(rdm), segs, G2_PROFILE.cfar, 2)
+    want_f, want_v = jcfar.segmented_cfar(jnp.asarray(rdm), segs, jconfig.G2_PROFILE.cfar, 2)
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     assert kcfar.cascaded_cfar2d.launches == before
+
+
+# name -> (segments, cropped rows nvu, batch, CFAR config, expected strip width)
+PLANS = {
+    "g2": (G2_PROFILE.cfar_segments, 303, 52, G2_PROFILE.cfar, 256),
+    "g2-batch1": (G2_PROFILE.cfar_segments, 303, 1, G2_PROFILE.cfar, 256),
+    "g0-short": (((0, 62),), 2035, 1, CFARConfig(), 64),
+    "g0-long": (((0, 512),), 2035, 1, CFARConfig(), 256),
+    # segments narrower than the 14-column range halo, misaligned starts
+    "tiny": (((0, 3), (3, 20), (20, 21), (21, 150)), 23, 2, CFARConfig(threshold=2.0), 256),
+    "mid": (((0, 100), (100, 127)), 40, 2, CFARConfig(), 128),
+    "narrow-only": (((0, 5), (5, 13)), 7, 3, CFARConfig(ref_cells=1, guard_cells=0), 64),
+    "E127": (((0, 700),), 50, 3, CFARConfig(range_extend_cells=127), 256),
+}
+
+
+@pytest.mark.parametrize("case", list(PLANS))
+def test_cfar_plan_covers_every_cell_once(case):
+    """The block map of the one B1 launch: every output cell of every
+    segment belongs to exactly one block, every clutter-row column to
+    exactly one first-band block, and a block fits the card (threads, shared
+    memory)."""
+    segments, nvu, batch, cfg, tx = PLANS[case]
+    plan = kcfar.cfar_plan(segments, nvu, batch, cfg)
+    r, g, e = cfg.ref_cells, cfg.guard_cells, cfg.range_extend_cells
+    assert plan.tx == tx and plan.threads == -(-(tx + 2 * (2 * e + r + g)) // 32) * 32 <= 1024
+    assert plan.smem == kcfar.smem_bytes(tx, r, g, e) <= kcfar.SMEM_LIMIT
+    assert [(c, w) for c, w, _ in plan.table] == [(a, b - a) for a, b in segments]
+    assert plan.n_bands == -(-nvu // plan.band_rows)
+    nr = segments[-1][1]
+    cells = np.zeros((nvu, nr), np.int32)
+    crop = np.zeros(nr, np.int32)
+    for block in range(plan.n_blocks):
+        col0, ns, x0, y_begin, y_end = kcfar.plan_tile(plan, block)
+        assert 0 <= x0 < ns and 0 <= y_begin < nvu
+        cols = slice(col0 + x0, col0 + min(x0 + plan.tx, ns))
+        cells[y_begin:y_end, cols] += 1
+        if y_begin == 0:
+            crop[cols] += 1
+    assert (cells == 1).all() and (crop == 1).all()
+
+
+def test_cfar_plan_bands():
+    """G2 keeps long bands (the velocity pipeline fills once per 101 rows);
+    the single G0 segments cut their 2035 rows into short bands, so the one
+    RDM of a call still spreads over the card."""
+    g2 = kcfar.cfar_plan(G2_PROFILE.cfar_segments, 303, 52, G2_PROFILE.cfar)
+    assert (g2.tx, g2.threads, g2.band_rows, g2.n_bands) == (256, 288, 101, 3)
+    assert g2.n_blocks * 52 == 2184 and g2.smem == 53056   # four blocks per SM
+    short = kcfar.cfar_plan(((0, 62),), 2035, 1, CFARConfig())
+    long = kcfar.cfar_plan(((0, 512),), 2035, 1, CFARConfig())
+    for plan in (short, long):
+        assert plan.n_blocks >= 2 * kcfar.H100_SMS and plan.band_rows <= 16
+    with pytest.raises(ValueError, match="segments"):
+        kcfar.cfar_plan(tuple((i, i + 1) for i in range(kcfar.MAX_SEGMENTS + 1)), 10, 1,
+                        CFARConfig())
+    with pytest.raises(ValueError, match="threads"):
+        kcfar.cfar_plan(((0, 100),), 50, 1, CFARConfig(ref_cells=300))
 
 
 def test_ops_cfar_general_form_matches_ext1_form(rng):

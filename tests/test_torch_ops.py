@@ -26,6 +26,7 @@ from radar_signal_process_tpu.ops import mtd as jmtd
 from radar_signal_process_tpu.ops import pulse_compression as jpc
 from radar_signal_process_tpu.ops import waveforms as jwave
 from radar_signal_process_tpu.ops import windows as jwin
+from radar_signal_process_tpu_torch import config as tconfig
 from radar_signal_process_tpu_torch.ops import cfar as tcfar
 from radar_signal_process_tpu_torch.ops import dbf as tdbf
 from radar_signal_process_tpu_torch.ops import measure as tmeasure
@@ -33,6 +34,7 @@ from radar_signal_process_tpu_torch.ops import mtd as tmtd
 from radar_signal_process_tpu_torch.ops import pulse_compression as tpc
 from radar_signal_process_tpu_torch.ops import waveforms as twave
 from radar_signal_process_tpu_torch.ops import windows as twin
+from tests.test_torch_import import as_config
 
 torch.set_num_threads(2)
 
@@ -69,7 +71,7 @@ def test_make_window_equal(kind):
                          ids=["G0", "G1", "G2"])
 def test_reference_pulses_equal(profile):
     want = jwave.reference_pulses(profile)
-    got = twave.reference_pulses(profile)
+    got = twave.reference_pulses(as_config(profile, tconfig))
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
@@ -127,9 +129,10 @@ def test_segmented_pulse_compression_matches_jax(rng, profile):
     want = np.asarray(
         jpc.segmented_pulse_compression(jnp.asarray(echo), profile, pulses)
     )
-    spectra, lens = tpc.segment_filters(profile, pulses)
+    tprofile = as_config(profile, tconfig)
+    spectra, lens = tpc.segment_filters(tprofile, pulses)
     got = tpc.segmented_pulse_compression(
-        torch.from_numpy(echo), profile,
+        torch.from_numpy(echo), tprofile,
         [torch.from_numpy(s.astype(np.complex64)) for s in spectra], lens,
     ).numpy()
     assert got.shape == want.shape == echo.shape
@@ -232,7 +235,7 @@ def test_cascaded_cfar2d_bit_equal(rng, cfg):
     rdm[1, 44:53, :] = 0.0                         # notched rows self-flag
     rdm[2, 30, 10:13] = 45.0                       # exact three-way tie
     want_f, want_v = jcfar.cascaded_cfar2d(jnp.asarray(rdm), cfg, 6)
-    got_f, got_v = tcfar.cascaded_cfar2d(torch.from_numpy(rdm), cfg, 6)
+    got_f, got_v = tcfar.cascaded_cfar2d(torch.from_numpy(rdm), as_config(cfg, tconfig), 6)
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
     assert got_f.any()
@@ -243,7 +246,8 @@ def test_segmented_cfar_bit_equal_g2_width(rng):
     rdm = _rdm(rng, nv=64, nr=3404, hits=60)
     rdm[:, [0, 227, 228, 950, 951, 3403]] += 40.0  # segment-edge columns
     want_f, want_v = jcfar.segmented_cfar(jnp.asarray(rdm), segs, CFARConfig(threshold=5.0), 3)
-    got_f, got_v = tcfar.segmented_cfar(torch.from_numpy(rdm), segs, CFARConfig(threshold=5.0), 3)
+    got_f, got_v = tcfar.segmented_cfar(torch.from_numpy(rdm), segs,
+                                        tconfig.CFARConfig(threshold=5.0), 3)
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
 

@@ -23,10 +23,13 @@ from radar_signal_process_tpu.models import detect as jdetect
 from radar_signal_process_tpu.models import mtd_pipeline as jmtd
 from radar_signal_process_tpu.models.streaming import StreamingPipeline as JaxPipeline
 from radar_signal_process_tpu.sim.packets_synth import write_g2_capture
+from radar_signal_process_tpu_torch import config as tconfig
+from radar_signal_process_tpu_torch import ingest as tingest
 from radar_signal_process_tpu_torch.models import detect as tdetect
 from radar_signal_process_tpu_torch.models import mtd_pipeline as tmtd
 from radar_signal_process_tpu_torch.models.streaming import StreamingPipeline
 from tests.test_streaming import SMALL
+from tests.test_torch_import import as_config
 
 torch.set_num_threads(2)
 
@@ -72,7 +75,7 @@ def test_port_capture_writer_is_the_reference(tmp_path):
     shape = (2, SMALL.prt_per_frame, SMALL.point_prt, SMALL.n_channels)
     iq = (rng.integers(-300, 300, shape) + 1j * rng.integers(-300, 300, shape))
     write_g2_capture(str(tmp_path / "ref"), iq, SMALL, data_type=1)
-    port_write(str(tmp_path / "port"), iq, SMALL, data_type=1)
+    port_write(str(tmp_path / "port"), iq, as_config(SMALL, tconfig), data_type=1)
     ref = sorted(p.name for p in (tmp_path / "ref").iterdir())
     assert ref and ref == sorted(p.name for p in (tmp_path / "port").iterdir())
     for name in ref:
@@ -94,8 +97,9 @@ def _jax_run(cap, profile, n_frames, dbf, **kw):
 
 
 def _torch_run(cap, profile, n_frames, dbf, **kw):
+    profile = as_config(profile, tconfig)
     pipe = StreamingPipeline(
-        G2FrameReader(cap, profile), profile, max_frames=n_frames,
+        tingest.G2FrameReader(cap, profile), profile, max_frames=n_frames,
         dbf_coeffs=_coeffs(profile) if dbf else None, device="cpu", **kw,
     )
     return list(pipe), pipe.counters.snapshot()
@@ -155,7 +159,8 @@ def test_stream_flags_cross_detectors(small_capture, dbf):
     got, _ = _torch_run(small_capture, SMALL, 4, dbf, **SMALL_KW)
     n_clutter = jdetect.clutter_cells(SMALL, 16, 1e-6)
     j_det = jdetect.make_detector(SMALL, n_clutter=n_clutter, max_detections=8)
-    t_det = tdetect.make_detector(SMALL, n_clutter=n_clutter, max_detections=8)
+    t_det = tdetect.make_detector(as_config(SMALL, tconfig), n_clutter=n_clutter,
+                                  max_detections=8, device="cpu")
     for g, w in zip(got, want):
         t_flags, _, _ = t_det(torch.from_numpy(np.array(w.rdms, np.float32)))
         np.testing.assert_array_equal(t_flags.numpy(), np.asarray(w.flags))
@@ -172,8 +177,9 @@ def test_stream_full_g2_fast_time_single_beam(tmp_path):
     want, want_c = _jax_run(cap, prof, 3, False, **kw)
     got, got_c = _torch_run(cap, prof, 3, False, **kw)
     assert [r.frame_idx for r in got] == [r.frame_idx for r in want] == [0, 1]
-    n_clutter = tdetect.clutter_cells(prof, 48)
-    t_det = tdetect.make_detector(prof, n_clutter=n_clutter, max_detections=16)
+    tprof = as_config(prof, tconfig)
+    n_clutter = tdetect.clutter_cells(tprof, 48)
+    t_det = tdetect.make_detector(tprof, n_clutter=n_clutter, max_detections=16, device="cpu")
     for g, w in zip(got, want):
         assert g.rdms.shape == (1, 4, 48, 3404)
         _assert_rdm_close(g.rdms, w.rdms)
@@ -197,7 +203,7 @@ def test_frame_processor_matches_jax(rng, variant):
             for _ in range(2))
     want = np.asarray(jmtd.make_frame_processor(prof, 2, stc_curve_db=stc)(
         jnp.asarray(a), jnp.asarray(b)))
-    proc = tmtd.make_frame_processor(prof, 2, stc_curve_db=stc)
+    proc = tmtd.make_frame_processor(as_config(prof, tconfig), 2, stc_curve_db=stc, device="cpu")
     got = proc(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     assert got.shape == want.shape == (2, 2, 16, 128)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
@@ -212,7 +218,8 @@ def test_detector_matches_jax_on_same_rdm(rng):
     rdm[..., [0, 23, 24, 103, 104, 343]] += 40.0   # segment-edge columns
     want_f, want_v, want_d = jdetect.make_detector(SEGMENTED, n_clutter=2, max_detections=8)(
         jnp.asarray(rdm))
-    det = tdetect.make_detector(SEGMENTED, n_clutter=2, max_detections=8)
+    det = tdetect.make_detector(as_config(SEGMENTED, tconfig), n_clutter=2, max_detections=8,
+                                device="cpu")
     got_f, got_v, got_d = det(torch.from_numpy(rdm))
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
@@ -234,13 +241,14 @@ def test_stream_truncated_capture_stops_cleanly(tmp_path):
 def test_stream_producer_error_surfaces(tmp_path):
     cap = _write(tmp_path, SMALL, 4, seed=14)
 
-    class FailingReader(G2FrameReader):
+    class FailingReader(tingest.G2FrameReader):
         def read_frame(self, idx):
             if idx == 3:
                 raise OSError("disk gone")
             return super().read_frame(idx)
 
-    pipe = StreamingPipeline(FailingReader(cap, SMALL), SMALL, max_frames=4,
+    small = as_config(SMALL, tconfig)
+    pipe = StreamingPipeline(FailingReader(cap, small), small, max_frames=4,
                              device="cpu", **SMALL_KW)
     seen = []
     with pytest.raises(OSError, match="disk gone"):
@@ -252,7 +260,8 @@ def test_stream_producer_error_surfaces(tmp_path):
 def test_stream_skips_gaps(rng):
     """A non-consecutive frame starts a new pair, as in the JAX windowed
     iterator."""
-    pipe = StreamingPipeline(None, SMALL, max_frames=100, device="cpu", **SMALL_KW)
+    pipe = StreamingPipeline(None, as_config(SMALL, tconfig), max_frames=100, device="cpu",
+                             **SMALL_KW)
     shape = (SMALL.prt_per_frame, SMALL.point_prt, SMALL.n_channels)
 
     def fake_produce():
@@ -266,11 +275,12 @@ def test_stream_skips_gaps(rng):
 
 
 def test_stream_validation():
+    small = as_config(SMALL, tconfig)
     with pytest.raises(ValueError, match="emit"):
-        StreamingPipeline(None, SMALL, emit="rdm", device="cpu")
+        StreamingPipeline(None, small, emit="rdm", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
-            StreamingPipeline(None, SMALL, device="cuda")
+            StreamingPipeline(None, small, device="cuda")
 
 
 def test_cli_stream_cpu_matches_jax_cli(tmp_path, capsys, monkeypatch):
@@ -288,6 +298,7 @@ def test_cli_stream_cpu_matches_jax_cli(tmp_path, capsys, monkeypatch):
         cfar_segments=((0, 40), (40, 120), (120, 344)), n_channels=2, n_beams=2,
     )
     monkeypatch.setitem(PROFILES, "G2", prof)
+    monkeypatch.setitem(tconfig.PROFILES, "G2", as_config(prof, tconfig))
     cap = _write(tmp_path / "cap", prof, 4, seed=15)
     coeff_path = tmp_path / "dbf.txt"
     c = _coeffs(prof)
