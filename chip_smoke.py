@@ -44,7 +44,22 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    checks B3 and B1 ran (B1 once per segment), the RDMs are finite and agree with the plain
    versions, and the target is measured within 0.3 m/s and 2 range cells in
    every frame; times each stage with CUDA events, the ``.bin`` parse, and
-   the frame rate against the radar's 12.5 frames/s.
+   the frame rate against the radar's 12.5 frames/s;
+9. G1      — a seeded full-width G1 echo (2 beams x 1536 x 1031, the target
+   of ``tests/test_chains.py``: -5.7 m/s at 320 m, 15 dB SCR) through
+   ``g1_validation_chain`` on the card: B2 at 1536 x 1536 x 868 against its
+   plain version and the complex128 product (1e-5 of the peak), the argmax
+   within 0.3 m/s and the mid-segment peak at column 128, ms per call;
+10. sweep  — ``radar_signal_process_tpu_torch.cli sweep --device cuda`` with
+   its defaults at full G2 (3 SCRs x 3 thresholds x 4 frames): B2 once per
+   SCR, B1 once per threshold per SCR; every threshold's B1 flags bit for
+   bit against the plain version on the same RDMs; the table against the
+   reference table (Pd, accuracy, PCF equal, FA rate within 1e-4);
+11. e2e    — ``cli simulate`` writes 3 full-G2 frames (16 channels, target
+   -5.7 m/s at 320 m), then ``cli e2e --frames 2 --device cuda``: B2 and B1
+   once per window, the target detected in every window at its
+   mid-segment column 281 or long-segment column 1004 (+-1), ms per window
+   from the CLI's stage timers.
 
 The line before the last is a JSON summary of the kernels (with each one's
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -75,6 +90,17 @@ G0_BATCH = 2                      # the two monopulse beams
 G0_FREQ_INDEX = (5, 2, 9, 5)      # per-frame frequency index of the G0 capture
 G0_BEAM_POS = (2, 2, 3, 2)
 G0_REAL_TIME = 1.0 / (1536 * 52.08e-6)  # frames/s: one G0 frame per 80.0 ms
+G1_SCR_DB = 15.0                  # the G1 golden drive (tests/test_chains.py)
+# the full-G2 sweep of `cli sweep` with its defaults, computed by the JAX
+# package (a copy of it run on a CPU): {(SCR dB, T): (Pd, FA rate, acc, PCF)}
+SWEEP_REFERENCE = {
+    (0.0, 3.0): (1.0, 3.35e-2, 1.0, 1.0), (0.0, 5.0): (1.0, 3.32e-2, 1.0, 1.0),
+    (0.0, 7.0): (1.0, 3.31e-2, 1.0, 1.0), (10.0, 3.0): (1.0, 3.36e-2, 1.0, 1.0),
+    (10.0, 5.0): (1.0, 3.32e-2, 1.0, 1.0), (10.0, 7.0): (1.0, 3.31e-2, 1.0, 1.0),
+    (20.0, 3.0): (1.0, 3.36e-2, 1.0, 1.0), (20.0, 5.0): (1.0, 3.32e-2, 1.0, 1.0),
+    (20.0, 7.0): (1.0, 3.31e-2, 1.0, 1.0),
+}
+SWEEP_FA_TOL = 1e-4               # the reference's FA rates carry 3 digits
 REPS = 10
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12           # H100 SXM FP32 peak outside the tensor cores
@@ -337,13 +363,12 @@ def phase_cfar(dev, rdm_b2: torch.Tensor) -> dict:
 
     from radar_signal_process_tpu_torch.config import G2_PROFILE as prof
     from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
-    from radar_signal_process_tpu_torch.models.detect import clutter_cells
+    from radar_signal_process_tpu_torch.models.detect import clutter_cells, renotch_mask
     from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
-    from radar_signal_process_tpu_torch.params import chain_params
 
     segments = prof.cfar_segments
     n_clutter = clutter_cells(prof, G2_PULSES)
-    mask = chain_params(prof, device=dev).renotch_mask
+    mask = torch.from_numpy(renotch_mask(prof, G2_PULSES, n_clutter, 20)).to(dev)
     rdm_n = (rdm_b2 * mask[:, None]).contiguous()
     cfg = prof.cfar
     cases = [("B2 output, renotch /20", rdm_n, cfg)]
@@ -424,7 +449,7 @@ def phase_slice(dev) -> dict:
     from radar_signal_process_tpu_torch.kernels import cfar as kcfar
     from radar_signal_process_tpu_torch.kernels import rdm as krdm
     from radar_signal_process_tpu_torch.ingest import g2_reader_class
-    from radar_signal_process_tpu_torch.models.detect import clutter_cells, detect_rdm
+    from radar_signal_process_tpu_torch.models.detect import clutter_cells, detect_rdm, renotch_mask
     from radar_signal_process_tpu_torch.models.mtd_pipeline import slice_cpi_window
     from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
     from radar_signal_process_tpu_torch.ops.dbf import apply_dbf, load_dbf_coeffs
@@ -507,8 +532,8 @@ def phase_slice(dev) -> dict:
         peak = float(want.abs().max())
         rdm_ok = bool(((got - want).abs() <= 2e-5 * peak + RDM_RTOL * want.abs()).all())
         n_clutter = clutter_cells(prof, G2_PULSES)
-        pf, _ = segmented_cfar(got * params.renotch_mask[:, None], prof.cfar_segments,
-                               prof.cfar, n_clutter)
+        keep = torch.from_numpy(renotch_mask(prof, G2_PULSES, n_clutter, 20)).to(dev)
+        pf, _ = segmented_cfar(got * keep[:, None], prof.cfar_segments, prof.cfar, n_clutter)
         flags_ok = torch.equal(pf, first["flags"])
         print(f"slice: window {first['idx']} RDM vs plain max_abs_err "
               f"{float((got - want).abs().max()):.3e} (peak {peak:.3e}) -> "
@@ -519,13 +544,13 @@ def phase_slice(dev) -> dict:
             fail("slice: stream output disagrees with the plain versions")
 
         rdm = krdm.doppler_rdm(pc, params.dft_re, params.dft_im, notch)
-        flags, _ = detect_rdm(rdm, prof, n_clutter, params.renotch_mask)
+        flags, _ = detect_rdm(rdm, prof, n_clutter)
         ms = cuda_ms({
             "dbf": lambda: stage(host[1]),
             "pc": lambda: segmented_pulse_compression(
                 win, prof, params.pc_spectra, params.pc_filter_lens),
             "rdm": lambda: krdm.doppler_rdm(pc, params.dft_re, params.dft_im, notch),
-            "cfar": lambda: detect_rdm(rdm, prof, n_clutter, params.renotch_mask),
+            "cfar": lambda: detect_rdm(rdm, prof, n_clutter),
             "extract": lambda: extract_detections(flags, rdm, 16),
         }, reps=5)
         print("slice: stage median ms (CUDA events, one window; dbf per frame): "
@@ -823,6 +848,255 @@ def phase_g0_slice(dev) -> dict:
     return {"launches": launches, "frames_per_s": rate, "stage_ms": ms, "parse_ms": parse_ms}
 
 
+def g2_echo_batch(prof, scr: float, n_frames: int, seed: int = 0) -> np.ndarray:
+    """The sweep's echoes of one SCR (``evalx.sweep.sweep_thresholds``): the
+    target at TARGET_V, TARGET_R over the clutter of seed ``seed + 97 f``."""
+    from radar_signal_process_tpu_torch.sim import (
+        add_clutter,
+        apply_scr,
+        synthesize_target_echo,
+        synthetic_clutter,
+    )
+
+    n = prof.prt_per_frame
+    target = synthesize_target_echo(prof, TARGET_V, TARGET_R, n_pulses=n)
+    out = []
+    for f in range(n_frames):
+        clutter = synthetic_clutter(prof, n_pulses=n, seed=seed + 97 * f)
+        out.append(add_clutter(apply_scr(target, clutter, scr, prof), clutter))
+    return np.stack(out).astype(np.complex64)
+
+
+def b2_report(label: str, pc: torch.Tensor, w_re, w_im, notch) -> dict:
+    """B2 against its plain version and the complex128 product at one
+    shape; times of both (CUDA events, in turns) beside the bound."""
+    from radar_signal_process_tpu_torch.kernels.rdm import doppler_rdm, doppler_rdm_plain
+
+    got = doppler_rdm(pc, w_re, w_im, notch)
+    want = doppler_rdm_plain(pc, w_re, w_im, notch)
+    torch.cuda.synchronize()
+    max_abs, max_rel, peak = rdm_error(got, want)
+    ok = bool(((got - want).abs() <= 2e-5 * peak + RDM_RTOL * want.abs()).all())
+    exact = torch.matmul(torch.complex(w_re, w_im).to(torch.complex128),
+                         pc.to(torch.complex128)).abs()
+    exact[..., notch[0] : notch[1] + 1, :] = 0.0
+    err_c128, plain_c128 = c128_error(got, exact), c128_error(want, exact)
+    del exact, want
+    ms = cuda_ms({"kernel": lambda: doppler_rdm(pc, w_re, w_im, notch),
+                  "plain": lambda: doppler_rdm_plain(pc, w_re, w_im, notch)})
+    n_fft, n = w_re.shape
+    batch = pc.numel() // (n * pc.shape[-1])
+    n_bytes = pc.numel() * 8 + 2 * w_re.numel() * 4 + got.numel() * 4
+    flops = 8.0 * n_fft * n * batch * pc.shape[-1]
+    bound, bound_by = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
+    print(f"B2 doppler_rdm [{label}] {tuple(pc.shape)} -> {tuple(got.shape)}: max_abs_err "
+          f"{max_abs:.3e} max_rel_err {max_rel:.3e} (peak {peak:.3e}) vs plain (2e-5*peak + "
+          f"{RDM_RTOL}*|want|) -> {'ok' if ok else 'FAIL'}; vs complex128 product: max error "
+          f"/ peak kernel {err_c128:.3e} plain {plain_c128:.3e} (kernel <= {C128_PEAK}) -> "
+          f"{'ok' if err_c128 <= C128_PEAK else 'FAIL'}; median ms kernel {ms['kernel']:.3f} "
+          f"plain {ms['plain']:.3f}; bound {bound:.3f} ms by {bound_by} | {SMI['line']}")
+    if not (ok and err_c128 <= C128_PEAK):
+        fail(f"B2 [{label}]: kernel disagrees with its plain version or the complex128 product")
+    return {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "error_vs_c128": err_c128, "plain_error_vs_c128": plain_c128,
+            "shape": list(pc.shape)}
+
+
+def phase_g1(dev) -> dict:
+    from radar_signal_process_tpu_torch.config import G1_PROFILE as prof
+    from radar_signal_process_tpu_torch.config import G1_RANGE_CONCAT
+    from radar_signal_process_tpu_torch.kernels import rdm as krdm
+    from radar_signal_process_tpu_torch.models.g1_chain import (
+        g1_validation_chain,
+        make_g1_validation_chain,
+    )
+    from radar_signal_process_tpu_torch.ops.mtd import notch_rows
+    from radar_signal_process_tpu_torch.ops.pulse_compression import (
+        range_concatenate,
+        segmented_pulse_compression,
+    )
+    from radar_signal_process_tpu_torch.params import cpi_params
+    from radar_signal_process_tpu_torch.sim import apply_scr, synthesize_target_echo, synthetic_clutter
+
+    n = prof.prt_per_frame
+    t0 = time.perf_counter()
+    target = synthesize_target_echo(prof, TARGET_V, TARGET_R, n_pulses=n)
+    echo = np.stack([apply_scr(target, c, G1_SCR_DB, prof) + c
+                     for c in (synthetic_clutter(prof, seed=s) for s in (7, 8))])
+    x = torch.from_numpy(echo.astype(np.complex64)).to(dev)
+    print(f"G1: seeded echo 2 beams x {n} x {prof.point_prt} (target {TARGET_V} m/s at "
+          f"{TARGET_R} m, {G1_SCR_DB} dB SCR) in {time.perf_counter() - t0:.1f} s")
+    g1_validation_chain(x, prof)            # builds the chain's constants
+    torch.cuda.synchronize()
+    krdm.doppler_rdm.launches = 0
+    rdm = g1_validation_chain(x, prof)
+    torch.cuda.synchronize()
+    launches = {"doppler_rdm": krdm.doppler_rdm.launches}
+    if launches["doppler_rdm"] != 1:
+        fail(f"G1: {launches['doppler_rdm']} B2 launches for one chain call (want 1)")
+    if rdm.shape != (2, n, 868) or not bool(torch.isfinite(rdm).all()):
+        fail(f"G1: bad RDM shape {tuple(rdm.shape)} or non-finite values")
+    v_axis = prof.velocity_axis(n)
+    found = []
+    for b in range(2):
+        vi, ri = np.unravel_index(int(rdm[b].argmax()), (n, 868))
+        mid = int(rdm[b, vi, 82:318].argmax()) + 82
+        found.append((float(v_axis[vi]), int(ri), mid))
+        if abs(v_axis[vi] - TARGET_V) >= 0.3 or mid != 128:
+            fail(f"G1: beam {b} peak at v {v_axis[vi]:.3f} m/s, mid-segment column {mid} "
+                 f"(want {TARGET_V} +- 0.3, 128)")
+    ms = cuda_ms({"chain": lambda: g1_validation_chain(x, prof)})["chain"]
+    print(f"G1: g1_validation_chain on the card: {ms:.3f} ms per call (CUDA events); "
+          f"launches {launches}; peak per beam (v m/s, column, mid-segment column) {found}")
+    chain = make_g1_validation_chain(prof, device=dev)     # the same constants
+    pc = range_concatenate(segmented_pulse_compression(
+        x, prof, chain.pc_spectra, chain.pc_filter_lens), G1_RANGE_CONCAT)
+    params = cpi_params(prof, n, x.device)
+    stats = b2_report("G1", pc, params.dft_re, params.dft_im,
+                      notch_rows(n, prof.mtd.notch_divisor))
+    return {"launches": launches, "ms": ms, "b2": stats}
+
+
+def phase_sweep(dev) -> dict:
+    import dataclasses
+
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.config import G2_PROFILE as prof
+    from radar_signal_process_tpu_torch.evalx import evaluate_frames
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.kernels import rdm as krdm
+    from radar_signal_process_tpu_torch.models.detect import clutter_cells, renotch_mask
+    from radar_signal_process_tpu_torch.models.mtd_pipeline import mtd_produce
+    from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
+    from radar_signal_process_tpu_torch.ops.mtd import notch_rows
+    from radar_signal_process_tpu_torch.ops.pulse_compression import segmented_pulse_compression
+    from radar_signal_process_tpu_torch.params import cpi_params
+
+    seen: dict = {}
+    krdm.doppler_rdm.launches = 0
+    kcfar.cascaded_cfar2d.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["sweep", "--device", dev.type], on_result=seen.update)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"doppler_rdm": krdm.doppler_rdm.launches,
+                "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches}
+    scrs = sorted({k[0] for k in SWEEP_REFERENCE})
+    thresholds = sorted({k[1] for k in SWEEP_REFERENCE})
+    if rc != 0 or set(seen) != set(SWEEP_REFERENCE):
+        fail(f"sweep: cli sweep rc {rc}, cells {sorted(seen)}")
+    if launches != {"doppler_rdm": len(scrs), "cascaded_cfar2d": len(scrs) * len(thresholds)}:
+        fail(f"sweep: launches {launches} (want B2 once per SCR, B1 once per threshold per SCR)")
+    bad = []
+    for key, (pd, fa, acc, pcf) in SWEEP_REFERENCE.items():
+        m = seen[key]
+        if ((m["detection_rate"], m["accuracy"], m["localization_pcf"]) != (pd, acc, pcf)
+                or abs(m["false_alarm_rate"] - fa) > SWEEP_FA_TOL):
+            bad.append((key, m))
+    print(f"sweep: cli sweep G2 full width ({len(scrs)} SCRs x {len(thresholds)} thresholds x "
+          f"4 frames of {prof.prt_per_frame} x {prof.point_prt}) in {wall:.2f} s wall; launches {launches}; table vs the "
+          f"reference (Pd, acc, PCF equal, FA rate +- {SWEEP_FA_TOL}) -> "
+          f"{'ok' if not bad else 'FAIL'}; FA rates "
+          + " ".join(f"{k[0]:g}/{k[1]:g}:{seen[k]['false_alarm_rate']:.4e}" for k in sorted(seen)))
+    if bad:
+        fail(f"sweep: cells off the reference table: {bad}")
+
+    # every threshold's B1 flags against the plain version on the same RDMs
+    n_clutter = clutter_cells(prof, prof.prt_per_frame)
+    keep = torch.from_numpy(renotch_mask(prof, prof.prt_per_frame, n_clutter, 20)).to(dev)
+    r_axis, v_axis = prof.range_axis(prof.point_prt), prof.velocity_axis(prof.prt_per_frame)
+    r_true = r_axis[prof.segment_starts[1] + round(TARGET_R / prof.delta_r)]
+    max_abs, mismatched = 0.0, 0
+    for scr in scrs:
+        x = torch.from_numpy(g2_echo_batch(prof, scr, 4)).to(dev)
+        rdm = mtd_produce(x, prof)
+        rdmn = rdm * keep[:, None]
+        for t in thresholds:
+            cfg = dataclasses.replace(prof.cfar, threshold=t)
+            kf, kv = kcfar.cascaded_cfar2d(rdmn, cfg, n_clutter, prof.cfar_segments)
+            pf, pv = segmented_cfar(rdmn, prof.cfar_segments, cfg, n_clutter)
+            diff = torch.cat([(kf != pf).flatten(), (kv != pv).flatten()])
+            mismatched += int(diff.sum())
+            max_abs = max(max_abs, float(diff.float().max()))
+            m = evaluate_frames(list(pf.cpu().numpy()), list(rdm.cpu().numpy()), [r_true] * 4,
+                                [TARGET_V] * 4, r_axis, v_axis)
+            if json.dumps(m) != json.dumps(seen[(scr, t)]):     # NaN equals NaN
+                fail(f"sweep: the plain version's metrics at {(scr, t)} differ: {m}")
+    print(f"sweep: B1 flags vs plain on the same RDMs at every (SCR, T): {mismatched} differ "
+          f"-> {'bit-identical' if mismatched == 0 else 'MISMATCH'}; the plain flags give the "
+          f"same table")
+    if mismatched:
+        fail(f"sweep: {mismatched} B1 flags differ from the plain version")
+    cfg = dataclasses.replace(prof.cfar, threshold=thresholds[0])
+    b1 = b1_report("sweep, 4 frames", rdmn, cfg, n_clutter,
+                   lambda: kcfar.cascaded_cfar2d(rdmn, cfg, n_clutter, prof.cfar_segments),
+                   lambda: segmented_cfar(rdmn, prof.cfar_segments, cfg, n_clutter))
+    b1.update(max_abs_err=max_abs, mismatched_flags=mismatched, library_ms=None)
+    params = cpi_params(prof, prof.prt_per_frame, x.device)
+    pc = segmented_pulse_compression(x, prof, params.pc_spectra, params.pc_filter_lens)
+    b2 = b2_report("sweep, 4 frames", pc, params.dft_re, params.dft_im,
+                   notch_rows(prof.prt_per_frame, prof.mtd.notch_divisor))
+    return {"launches": launches, "wall_s": wall, "b1": b1, "b2": b2}
+
+
+def phase_e2e(dev) -> dict:
+    import contextlib
+    import io
+
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.config import G2_PROFILE as prof
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.kernels import rdm as krdm
+
+    d = round(TARGET_R / prof.delta_r)
+    cols = (prof.segment_starts[1] + d, prof.segment_starts[2] + d)    # 281, 1004
+    with tempfile.TemporaryDirectory() as root:
+        cap = os.path.join(root, "cap")
+        t0 = time.perf_counter()
+        rc = cli.main(["simulate", "--output", cap, "--frames", "3", "--velocity",
+                       str(TARGET_V), "--range", str(TARGET_R)])
+        sim_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"e2e: cli simulate rc {rc}")
+        windows: list = []
+
+        def on_result(frame, rdms, flags, dets, seconds):
+            if not bool(torch.isfinite(rdms).all()):
+                fail(f"e2e: non-finite RDM in window {frame}")
+            windows.append((frame, seconds, tuple(rdms.shape)))
+
+        out = []
+        krdm.doppler_rdm.launches = 0
+        kcfar.cascaded_cfar2d.launches = 0
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["e2e", "--input", cap, "--frames", "2", "--device", dev.type],
+                          on_result=on_result)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"doppler_rdm": krdm.doppler_rdm.launches,
+                    "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches}
+        frames = json.loads(buf.getvalue())["frames"]
+        if rc != 0 or [f["frame"] for f in frames] != [0, 1] or len(windows) != 2:
+            fail(f"e2e: cli e2e rc {rc}, frames {[f['frame'] for f in frames]}")
+        if launches != {"doppler_rdm": 2, "cascaded_cfar2d": 2}:
+            fail(f"e2e: launches {launches} (want B2 and B1 once per window)")
+        for f in frames:
+            hits = [r for r in f["detections"] if min(abs(r[3] - c) for c in cols) <= 1]
+            out.append((f["frame"], len(f["detections"]), len(hits)))
+            if not hits:
+                fail(f"e2e: target not detected at column {cols[0]} or {cols[1]} (+-1) in "
+                     f"window {f['frame']}")
+    ms = [w[1] * 1e3 for w in windows]
+    print(f"e2e: cli simulate 3 frames G2 ({prof.n_channels} ch) in {sim_s:.1f} s; cli e2e {len(windows)} "
+          f"windows of {windows[0][2]} in {wall:.2f} s; mtd+cfar ms per window (StageTimers, "
+          f"synchronized) {[round(x, 3) for x in ms]}; launches {launches}; (window, rows, rows "
+          f"at column {cols[0]}/{cols[1]}) {out}")
+    return {"launches": launches, "ms_per_window": ms}
+
+
 def main() -> int:
     name = phase_device()
     dev = torch.device("cuda:0")
@@ -841,19 +1115,30 @@ def main() -> int:
     cfar_g0_stats = phase_cfar_g0(dev, chain, b3_out)
     del b3_out, chain
     g0 = phase_g0_slice(dev)
+    g1 = phase_g1(dev)
+    sweep = phase_sweep(dev)
+    e2e = phase_e2e(dev)
     b1_launches = {"stream": launches["cascaded_cfar2d"],
-                   "dmx": g0["launches"]["cascaded_cfar2d"]}
+                   "dmx": g0["launches"]["cascaded_cfar2d"],
+                   "sweep": sweep["launches"]["cascaded_cfar2d"],
+                   "e2e": e2e["launches"]["cascaded_cfar2d"]}
+    b2_launches = {"stream": launches["doppler_rdm"], "g1": g1["launches"]["doppler_rdm"],
+                   "sweep": sweep["launches"]["doppler_rdm"],
+                   "e2e": e2e["launches"]["doppler_rdm"]}
     kernels = [
         {"name": "doppler_rdm", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/rdm.cu",
          "replaces": "radar_signal_process_tpu/kernels/rdm_pallas.py:114",
-         "launches": launches["doppler_rdm"], **rdm_stats},
+         "launches": sum(b2_launches.values()), "launches_by_path": b2_launches,
+         **rdm_stats, "max_abs_err": max(rdm_stats["max_abs_err"], g1["b2"]["max_abs_err"]),
+         "g1": g1["b2"], "sweep": sweep["b2"]},
         {"name": "cascaded_cfar2d", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/cfar.cu",
          "replaces": "radar_signal_process_tpu/kernels/cfar_pallas.py:136",
          "launches": sum(b1_launches.values()), "launches_by_path": b1_launches,
-         **cfar_stats, "max_abs_err": max(cfar_stats["max_abs_err"], cfar_g0_stats["max_abs_err"]),
-         "g0": cfar_g0_stats},
+         **cfar_stats, "max_abs_err": max(cfar_stats["max_abs_err"], cfar_g0_stats["max_abs_err"],
+                                          sweep["b1"]["max_abs_err"]),
+         "g0": cfar_g0_stats, "sweep": sweep["b1"]},
         {"name": "fused_pc_rdm", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/pc_rdm.cu",
          "replaces": "radar_signal_process_tpu/kernels/pc_rdm_pallas.py:253",

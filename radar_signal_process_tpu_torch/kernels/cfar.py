@@ -125,13 +125,25 @@ def plan_tile(plan: CfarPlan, block: int) -> Tuple[int, int, int, int, int]:
     return col0, ns, ct * plan.tx, band * plan.band_rows, (band + 1) * plan.band_rows
 
 
+def plan_key(
+    segments: Sequence[Tuple[int, int]], nvu: int, batch: int, cfg: CFARConfig, n_sms: int
+) -> tuple:
+    """What shapes a launch's plan: the geometry, the windows, the method and
+    the card's SMs.  The threshold is not in it: a threshold sweep reuses
+    one plan (the kernel takes the threshold at run time)."""
+    return (tuple(segments), nvu, batch, cfg.ref_cells, cfg.guard_cells,
+            cfg.range_extend_cells, cfg.method, n_sms)
+
+
 @functools.lru_cache(maxsize=64)
-def _launch_table(segments, nvu: int, batch: int, cfg: CFARConfig, n_sms: int):
+def _launch_table(segments, nvu: int, batch: int, r: int, g: int, e: int, method: int,
+                  n_sms: int):
     """The plan of one launch and its segment table as the C entry point
-    takes it (col0[], ns[], first_block[]), built once per geometry."""
-    plan = cfar_plan(segments, nvu, batch, cfg, n_sms)
+    takes it (col0[], ns[], first_block[]), built once per :func:`plan_key`."""
+    plan = cfar_plan(segments, nvu, batch,
+                     CFARConfig(ref_cells=r, guard_cells=g, range_extend_cells=e,
+                                method=method), n_sms)
     lib = _build.library()
-    r, g, e = cfg.ref_cells, cfg.guard_cells, cfg.range_extend_cells
     if lib.rsp_cascaded_cfar_smem_bytes(plan.tx, r, g, e) != plan.smem:
         raise RuntimeError("cascaded_cfar2d: csrc/cfar.cu and smem_bytes disagree")
     table = (ctypes.c_int * (3 * len(plan.table) + 1))(
@@ -185,7 +197,7 @@ def cascaded_cfar2d(
         raise ValueError(f"cascaded_cfar2d: batch {batch} outside 1..65535")
 
     n_sms = torch.cuda.get_device_properties(rdm.device).multi_processor_count
-    plan, table = _launch_table(segments, nvu, batch, cfg, n_sms)
+    plan, table = _launch_table(*plan_key(segments, nvu, batch, cfg, n_sms))
     flags = torch.empty(rdm.shape, dtype=torch.bool, device=rdm.device)
     vflags = torch.empty(rdm.shape, dtype=torch.bool, device=rdm.device)
     stream = torch.cuda.current_stream(rdm.device).cuda_stream

@@ -1,11 +1,14 @@
-"""G2 MTD pipeline: segmented pulse compression -> CPI slicing -> RDM former.
+"""MTD pipeline: segmented pulse compression -> (CPI slicing) -> RDM former.
 
-Port of ``radar_signal_process_tpu/models/mtd_pipeline.py``: two
-consecutive frames are concatenated along slow time to double the CPI, each
-PRT row is compressed once, and ``win_size`` overlapping slices per beam go
-through the RDM former (``MTD/main_produce_dataset_win_xzr_v2.m:75-136``,
-``MTD/fun_MTD_produce.m:86-102``).  The (beam, slice) axes are batch axes
-of every op; for the shifted G2 spectrum the RDM former is the B2 kernel.
+Port of ``radar_signal_process_tpu/models/mtd_pipeline.py``.
+:func:`mtd_produce` is one CPI of any pulse count, the whole
+``fun_MTD_produce`` chain (``MTD/fun_MTD_produce.m:86-102``).
+:class:`FrameProcessor` is the G2 windowed form: two consecutive frames are
+concatenated along slow time to double the CPI, each PRT row is compressed
+once, and ``win_size`` overlapping slices per beam go through the RDM former
+(``MTD/main_produce_dataset_win_xzr_v2.m:75-136``).  Leading axes (beams,
+slices, frames) are batch axes of every op, and the RDM former is the B2
+kernel for shifted and unshifted spectra alike.
 """
 
 from __future__ import annotations
@@ -18,11 +21,16 @@ from torch import nn
 from radar_signal_process_tpu_torch.config import RadarProfile, matlab_round
 from radar_signal_process_tpu_torch.device import resolve_device
 from radar_signal_process_tpu_torch.kernels.rdm import doppler_rdm
-from radar_signal_process_tpu_torch.ops.mtd import istc_compensate, mti_cancel, notch_rows
+from radar_signal_process_tpu_torch.ops.mtd import (
+    istc_compensate,
+    mti_cancel,
+    notch_rows,
+    stc_gain,
+)
 from radar_signal_process_tpu_torch.ops.pulse_compression import (
     segmented_pulse_compression,
 )
-from radar_signal_process_tpu_torch.params import ChainParams, chain_params
+from radar_signal_process_tpu_torch.params import ChainParams, chain_params, cpi_params
 
 
 def window_slice_starts(prts_per_slice: int, win_size: int) -> Tuple[int, ...]:
@@ -41,16 +49,38 @@ def slice_cpi_window(echo_win: torch.Tensor, win_size: int) -> torch.Tensor:
 
 
 def _form_rdm(pc: torch.Tensor, profile: RadarProfile, params) -> torch.Tensor:
-    """Compressed pulses (..., n_pulses, n_pts) -> notched magnitude RDM."""
-    if not profile.mtd.fftshift:
-        raise NotImplementedError(
-            "the frame processor takes shifted (G1/G2-class) spectra only; G0 "
-            "runs through models.g0_chain.G0Chain (cli dmx), and the G1 chain "
-            "is not ported yet"
-        )
+    """Compressed pulses (..., n_pulses, n_pts) -> notched magnitude RDM
+    (B2 with the DFT planes of ``params``; no notch when the profile's
+    divisor is 0)."""
     n_fft = profile.mtd.fft_length or pc.shape[-2]
     notch = notch_rows(n_fft, profile.mtd.notch_divisor)
     return doppler_rdm(pc, params.dft_re, params.dft_im, notch)
+
+
+def mtd_produce(
+    echo: torch.Tensor, profile: RadarProfile, stc_curve_db=None, pulses=None
+) -> torch.Tensor:
+    """Echo (..., n_pulses, point_prt) complex64 -> magnitude RDM
+    (..., n_fft, point_prt) on the echo's device.
+
+    The window and the DFT planes span the echo's pulse count.  The
+    reference's dormant hooks are profile options: iSTC gain before
+    compression (``fun_MTD_produce.m:80-81``, with ``stc_curve_db``) and the
+    MTI canceller before the Doppler transform (``fun_Process_MTI.m``).
+    ``pulses`` overrides the synthesized matched-filter waveforms.
+    """
+    n = echo.shape[-2]
+    if pulses is None:
+        params = cpi_params(profile, n, echo.device)
+    else:
+        params = chain_params(profile, pulses=pulses, device=echo.device, n_pulses=n)
+    if profile.mtd.istc and stc_curve_db is not None:
+        gain = torch.as_tensor(stc_gain(stc_curve_db, echo.shape[-1]), device=echo.device)
+        echo = istc_compensate(echo, gain)
+    pc = segmented_pulse_compression(echo, profile, params.pc_spectra, params.pc_filter_lens)
+    if profile.mtd.mti_lag:
+        pc = mti_cancel(pc, lag=profile.mtd.mti_lag)
+    return _form_rdm(pc, profile, params)
 
 
 def mtd_window_produce(

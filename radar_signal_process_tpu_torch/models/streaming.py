@@ -76,8 +76,8 @@ class StreamingPipeline:
         self._dbf = params.dbf
         self._processor = FrameProcessor(profile, params, win_size)
         self._detector = Detector(
-            profile, params, clutter_cells(profile, profile.prt_per_frame, clutter_v),
-            max_detections,
+            profile, clutter_cells(profile, profile.prt_per_frame, clutter_v),
+            max_detections, device=self.device,
         )
         # two parsed frames in flight: the producer stays one frame ahead
         self._queue: "queue.Queue[Optional[tuple]]" = queue.Queue(maxsize=2)

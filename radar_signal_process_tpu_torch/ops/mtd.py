@@ -68,6 +68,22 @@ def doppler_process(
     return spec.abs()
 
 
+def doppler_process_range_major(
+    pc: torch.Tensor, window: np.ndarray, n_fft: int | None = None, shift: bool = True
+) -> torch.Tensor:
+    """:func:`doppler_process` (FFT form) emitting the RDM in the
+    (..., n_range, n_velocity) layout that the ``transposed=True`` CFAR
+    forms take: ``doppler_process(pc, window).mT``."""
+    n_pulses = pc.shape[-2]
+    if window.shape[0] != n_pulses:
+        raise ValueError(f"window length {window.shape[0]} != n_pulses {n_pulses}")
+    w = torch.as_tensor(window, dtype=pc.real.dtype, device=pc.device)
+    spec = torch.fft.fft(pc * w[:, None], n=n_fft or n_pulses, dim=-2).mT
+    if shift:
+        spec = torch.fft.fftshift(spec, dim=-1)
+    return spec.abs()
+
+
 def notch_rows(n: int, divisor: int) -> tuple[int, int]:
     """Inclusive 0-based rows ``(lo, hi)`` of the zero-velocity notch.
 
@@ -102,11 +118,16 @@ def zero_velocity_notch_unshifted(rdm: torch.Tensor, n_clutter: int) -> torch.Te
     Zeroes rows ``[0 : n_clutter+1]`` and ``[N-n_clutter : N]`` (0-based),
     ``zeroSetFlagMTD = [1:MTD_0_num+1, mtd_FFT_num-MTD_0_num+1 : mtd_FFT_num]``.
     """
-    n = rdm.shape[-2]
-    idx = np.arange(n)
-    keep = ~((idx <= n_clutter) | (idx >= n - n_clutter))
-    mask = torch.as_tensor(keep, dtype=rdm.dtype, device=rdm.device)
+    mask = torch.as_tensor(
+        notch_mask_unshifted(rdm.shape[-2], n_clutter), dtype=rdm.dtype, device=rdm.device
+    )
     return rdm * mask[:, None]
+
+
+def notch_mask_unshifted(n: int, n_clutter: int) -> np.ndarray:
+    """(n,) float32 keep-mask of :func:`zero_velocity_notch_unshifted`."""
+    idx = np.arange(n)
+    return (~((idx <= n_clutter) | (idx >= n - n_clutter))).astype(np.float32)
 
 
 def mti_cancel(echo: torch.Tensor, lag: int = 30) -> torch.Tensor:

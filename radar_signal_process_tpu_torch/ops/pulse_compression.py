@@ -18,7 +18,9 @@ Replicated reference semantics (file:line):
 * G0 short pulse: the raw taps, neither normalised, scaled nor shifted —
   ``DMX_SignalProcessing_main_xzr.m:146,343-344``;
 * G0 long pulse: fixed-length frequency-domain matched filter
-  ``ifft(fft(x, 512) .* matchF2)`` — ``DMX_SignalProcessing_main_xzr.m:348-353``.
+  ``ifft(fft(x, 512) .* matchF2)`` — ``DMX_SignalProcessing_main_xzr.m:348-353``;
+* G1 range re-concatenation after compression, 1031 -> 868 columns —
+  ``fun_lss_range_concate.m:4-8``.
 """
 
 from __future__ import annotations
@@ -164,3 +166,18 @@ def segmented_pulse_compression(
     if used < echo.shape[-1]:
         parts.append(torch.zeros_like(echo[..., used:]))
     return torch.cat(parts, dim=-1)
+
+
+def range_concatenate(
+    pc: torch.Tensor, spec: Sequence[Tuple[int, int, int]]
+) -> torch.Tensor:
+    """Drop the overlapping post-compression samples and re-concatenate the
+    segments (``fun_lss_range_concate.m:4-8``; G1: 1031 -> 868 columns).
+
+    ``spec`` entries are ``(dst_start, dst_stop, src_start)``, half-open and
+    0-based (``config.G1_RANGE_CONCAT``).  The result is a new contiguous
+    tensor.
+    """
+    return torch.cat(
+        [pc[..., src : src + (stop - start)] for start, stop, src in spec], dim=-1
+    )

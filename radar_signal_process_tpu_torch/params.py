@@ -5,13 +5,15 @@ iSTC curve, a matched-filter waveform) and derives its constants inside
 jitted functions or ``G0Chain.__init__``.  The port derives them once here,
 in float64 on the host exactly as the JAX package does, casts them to
 complex64/float32 and places them on the chain's device; ``FrameProcessor``,
-``Detector`` and ``G0Chain`` hold them as buffers.  The parity tests hand
+``G1ValidationChain`` and ``G0Chain`` hold them as buffers, and
+``mtd_produce`` takes them from :func:`cpi_params`.  The parity tests hand
 the same numpy arrays to both packages through this.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -25,13 +27,10 @@ from radar_signal_process_tpu_torch.config import (
 from radar_signal_process_tpu_torch.device import COMPLEX, REAL
 from radar_signal_process_tpu_torch.kernels.pc_rdm import pc_matrix_fir, pc_matrix_freq_domain
 from radar_signal_process_tpu_torch.kernels.rdm import dft_planes
-from radar_signal_process_tpu_torch.ops.mtd import notch_mask, stc_gain
+from radar_signal_process_tpu_torch.ops.mtd import stc_gain
 from radar_signal_process_tpu_torch.ops.pulse_compression import segment_filters
 from radar_signal_process_tpu_torch.ops.waveforms import reference_pulses
 from radar_signal_process_tpu_torch.ops.windows import make_window
-
-# the detector's CFAR-stage re-notch, N/20 rows (CFAR_WangCai/fun_0v_pressing.m)
-RENOTCH_DIVISOR = 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +40,6 @@ class ChainParams:
     dft_im: torch.Tensor                    # (n_fft, n_prt) f32 DFT plane, imag
     pc_spectra: Tuple[torch.Tensor, ...]    # per pulse segment, complex64
     pc_filter_lens: Tuple[int, ...]         # filter length per segment
-    renotch_mask: torch.Tensor              # (n_fft,) f32 CFAR-stage notch
     dbf: Optional[torch.Tensor]             # (n_beams, n_channels) complex64
     stc_gain: Optional[torch.Tensor]        # (point_prt,) f32 iSTC gain
 
@@ -52,13 +50,15 @@ def chain_params(
     pulses=None,
     stc_curve_db: np.ndarray | None = None,
     device: str | torch.device = "cpu",
+    n_pulses: int | None = None,
 ) -> ChainParams:
     """Constants of the G2 chain for ``profile`` on ``device``.
 
     ``pulses`` overrides the synthesized reference pulses; ``stc_curve_db``
-    is used when ``profile.mtd.istc`` is set.
+    is used when ``profile.mtd.istc`` is set.  The slow-time window and the
+    DFT planes span ``n_pulses`` (default: one frame's PRTs).
     """
-    n = profile.prt_per_frame
+    n = n_pulses or profile.prt_per_frame
     n_fft = profile.mtd.fft_length or n
     window = make_window(profile.mtd.window, n, profile.mtd.window_beta)
     w_re, w_im = dft_planes(window, n_fft, profile.mtd.fftshift)
@@ -75,10 +75,16 @@ def chain_params(
         dft_im=t(w_im, REAL),
         pc_spectra=tuple(t(s, COMPLEX) for s in spectra),
         pc_filter_lens=lens,
-        renotch_mask=t(notch_mask(n_fft, RENOTCH_DIVISOR), REAL),
         dbf=None if dbf_coeffs is None else t(dbf_coeffs, COMPLEX),
         stc_gain=t(stc_gain(stc_curve_db, profile.point_prt), REAL) if use_stc else None,
     )
+
+
+@functools.lru_cache(maxsize=16)
+def cpi_params(profile: RadarProfile, n_pulses: int, device: torch.device) -> ChainParams:
+    """:func:`chain_params` of one CPI of ``n_pulses`` with the synthesized
+    reference pulses, built once per (profile, n_pulses, device)."""
+    return chain_params(profile, device=device, n_pulses=n_pulses)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -485,3 +485,99 @@ def test_g0_chain_on_card_matches_cpu(tmp_path, rng, cuda_device):
         assert bool(m.valid[0])
         assert abs(float(m.velocity_ms[0]) - v_true) < 0.3
         assert abs(float(m.range_m[0]) - r_true) < 2 * prof.delta_r
+
+
+# ---------------------------------------------- the detection-quality path
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 1536, 868), (1, 332, 3404), (4, 332, 3404)],
+                         ids=["g1", "g2-single-cpi", "g2-sweep-batch"])
+def test_doppler_rdm_kernel_new_shapes(rng, cuda_device, shape):
+    """B2 at the shapes of the G1 chain (1536 x 1536 x 868, two beams) and
+    of a single-CPI ``mtd_produce`` at G2 (batch 1, and the sweep's 4),
+    against its plain version and the complex128 product."""
+    n = shape[-2]
+    pc = _pc(rng, shape, cuda_device)
+    pc[0, :, shape[-1] // 3] += 300.0 * torch.exp(
+        2j * torch.pi * 0.19 * torch.arange(n, device=cuda_device)).to(torch.complex64)
+    w_re, w_im = _planes(make_window("kaiser", n), cuda_device)
+    notch = (n // 2 - 1 - round(n / 150), n // 2 - 1 + round(n / 150))
+    before = krdm.doppler_rdm.launches
+    got = krdm.doppler_rdm(pc, w_re, w_im, notch)
+    want = krdm.doppler_rdm_plain(pc, w_re, w_im, notch)
+    assert krdm.doppler_rdm.launches == before + 1
+    exact = torch.matmul(torch.complex(w_re, w_im).to(torch.complex128),
+                         pc.to(torch.complex128)).abs()
+    exact[:, notch[0] : notch[1] + 1] = 0.0
+    peak = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=B3_PEAK_ATOL * peak)
+    assert _c128_error(got, exact) <= C128_PEAK
+
+
+@pytest.mark.gpu
+def test_cascaded_cfar2d_kernel_threshold_sweep(rng, cuda_device):
+    """Five thresholds over one batch in one process: bit-identical to the
+    plain version at each, and one launch plan for all of them."""
+    x = torch.from_numpy(_g2_crafted(rng, 4)).to(cuda_device)
+    segs = G2_PROFILE.cfar_segments
+    kcfar.cascaded_cfar2d(x, G2_PROFILE.cfar, 13, segs)
+    plans = kcfar._launch_table.cache_info().currsize
+    for t in (3.0, 4.3, 5.0, 6.1, 7.0):
+        cfg = dataclasses.replace(G2_PROFILE.cfar, threshold=t)
+        before = kcfar.cascaded_cfar2d.launches
+        got = kcfar.cascaded_cfar2d(x, cfg, 13, segs)
+        want = tcfar.segmented_cfar(x, segs, cfg, 13)
+        assert kcfar.cascaded_cfar2d.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kcfar._launch_table.cache_info().currsize == plans
+
+
+@pytest.mark.gpu
+def test_sweep_on_card_matches_cpu(cuda_device):
+    """``sweep_thresholds`` on the card (B2 once per SCR, B1 once per
+    threshold per SCR) gives the table of the same sweep on the CPU: Pd,
+    accuracy and PCF equal, the FA rate within 2 cells per frame."""
+    from radar_signal_process_tpu_torch.evalx.sweep import sweep_thresholds
+
+    prof = dataclasses.replace(
+        G2_PROFILE, prt_per_frame=128, point_prt=512, segment_points=(32, 160, 320),
+        cfar_segments=((0, 32), (32, 192), (192, 512)),
+    )
+    kw = dict(thresholds=[3.0, 4.3, 7.0], scr_db=[-10.0, 20.0], velocity_ms=-8.0,
+              range_m=300.0, n_frames=3)
+    launches = (krdm.doppler_rdm.launches, kcfar.cascaded_cfar2d.launches)
+    got = sweep_thresholds(prof, device=cuda_device, **kw)
+    assert krdm.doppler_rdm.launches == launches[0] + 2
+    assert kcfar.cascaded_cfar2d.launches == launches[1] + 6
+    want = sweep_thresholds(prof, device="cpu", **kw)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        g = got[key]
+        for m in ("detection_rate", "accuracy", "localization_pcf"):
+            assert g[m] == w[m] or (np.isnan(g[m]) and np.isnan(w[m])), (key, m)
+        assert abs(g["false_alarm_rate"] - w["false_alarm_rate"]) <= 2 / (128 * 512), key
+    assert got[(20.0, 3.0)]["detection_rate"] == 1.0
+
+
+@pytest.mark.gpu
+def test_g1_chain_on_card_matches_cpu(cuda_device):
+    """The G1 chain at full width on the card against the same chain on the
+    CPU (B2's plain version)."""
+    from radar_signal_process_tpu_torch.config import G1_PROFILE
+    from radar_signal_process_tpu_torch.models.g1_chain import g1_validation_chain
+    from radar_signal_process_tpu_torch.sim import (
+        apply_scr,
+        synthesize_target_echo,
+        synthetic_clutter,
+    )
+
+    target = synthesize_target_echo(G1_PROFILE, -5.7, 320.0)
+    clutter = synthetic_clutter(G1_PROFILE, seed=7)
+    echo = torch.from_numpy((apply_scr(target, clutter, 15.0, G1_PROFILE) + clutter)
+                            .astype(np.complex64))
+    before = krdm.doppler_rdm.launches
+    got = g1_validation_chain(echo.to(cuda_device), G1_PROFILE)
+    assert krdm.doppler_rdm.launches == before + 1
+    want = g1_validation_chain(echo, G1_PROFILE)
+    peak = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=B3_PEAK_ATOL * peak)
+    assert int(got[:, 82:318].amax(dim=0).argmax()) + 82 == 128   # mid-segment peak

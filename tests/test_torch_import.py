@@ -244,6 +244,22 @@ noise = rng.standard_normal((2, 128, 182)) * 30.0
 res = G0Chain(g0, cfg, 3, 1, device="cpu").process_frame(4000 * base + noise[0],
                                                           3000 * base + noise[1])
 assert res.rdm_sum_long.shape == (256, 128) and bool(res.measurements_long.valid[0])
+
+# the threshold x SCR sweep and the G1 chain on a small profile
+from radar_signal_process_tpu_torch.config import G1_PROFILE
+from radar_signal_process_tpu_torch.evalx import TruthGate
+from radar_signal_process_tpu_torch.evalx.sweep import sweep_thresholds
+from radar_signal_process_tpu_torch.models.g1_chain import g1_validation_chain
+
+small = dataclasses.replace(
+    G2_PROFILE, prt_per_frame=64, point_prt=256, segment_points=(32, 80, 144),
+    cfar_segments=((0, 32), (32, 112), (112, 256)),
+)
+table = sweep_thresholds(small, [5.0], [25.0], velocity_ms=-8.0, range_m=60.0, n_frames=2,
+                         clutter_v=1.0, gate=TruthGate(r_min=100.0), device="cpu")
+assert table[(25.0, 5.0)]["detection_rate"] == 1.0
+echo = torch.from_numpy((rng.standard_normal((32, 1031)) + 0j).astype(np.complex64))
+assert g1_validation_chain(echo, G1_PROFILE).shape == (32, 868)
 assert sys.modules["radar_signal_process_tpu"] is None and sys.modules["jax"] is None
 assert not [m for m in sys.modules if m.startswith(("radar_signal_process_tpu.", "jax."))]
 print("package-free ok")
@@ -305,6 +321,30 @@ def test_port_config_equals_the_jax_package(name):
         assert getattr(got, prop) == getattr(want, prop), prop
     assert got.delta_v(2048) == want.delta_v(2048)
     assert tconfig.PROFILES[got.name] is got and jconfig.PROFILES[want.name] is want
+
+
+_COPIED_MODULES = ("sim.targets", "sim.clutter", "sim.scr", "sim.packets_synth",
+                   "evalx.metrics")
+
+
+@pytest.mark.parametrize("name", _COPIED_MODULES)
+def test_port_copies_equal_the_jax_package(name):
+    """The port's copies of the JAX package's numpy modules define the same
+    functions and classes with the same code (only imports and the module
+    docstring differ)."""
+    import importlib
+    import inspect
+
+    got = importlib.import_module(f"radar_signal_process_tpu_torch.{name}")
+    want = importlib.import_module(f"radar_signal_process_tpu.{name}")
+
+    def defs(module):
+        return {k: inspect.getsource(v) for k, v in vars(module).items()
+                if (inspect.isfunction(v) or inspect.isclass(v))
+                and v.__module__ == module.__name__}
+
+    want_defs = defs(want)
+    assert want_defs and defs(got) == want_defs
 
 
 def test_port_config_constants_equal_the_jax_package():

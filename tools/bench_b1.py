@@ -58,8 +58,8 @@ def with_band_rows(band_rows):
     """``kcfar._launch_table`` with the plan's band length replaced."""
     real = kcfar._launch_table
 
-    def table(segments, nvu, batch, cfg, n_sms):
-        plan, tab = real(segments, nvu, batch, cfg, n_sms)
+    def table(*key):
+        plan, tab = real(*key)
         if band_rows is None:
             return plan, tab
         n_bands = -(-nvu // band_rows)
@@ -101,8 +101,8 @@ def main() -> int:
     real = kcfar._launch_table
 
     # band lengths: G2 in interleaved rounds, G0 each once
-    plan = real(G2_SEGMENTS, 303, 52, cfg2, torch.cuda.get_device_properties(dev)
-                .multi_processor_count)[0]
+    plan = real(*kcfar.plan_key(G2_SEGMENTS, 303, 52, cfg2, torch.cuda.get_device_properties(dev)
+                                .multi_processor_count))[0]
     print(f"G2 plan: strips of {plan.tx} columns, {plan.threads} threads, bands of "
           f"{plan.band_rows} rows, {plan.n_blocks * 52} blocks, {plan.smem} B shared memory")
     times: dict = {}
