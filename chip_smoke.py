@@ -59,7 +59,22 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    -5.7 m/s at 320 m), then ``cli e2e --frames 2 --device cuda``: B2 and B1
    once per window, the target detected in every window at its
    mid-segment column 281 or long-segment column 1004 (+-1), ms per window
-   from the CLI's stage timers.
+   from the CLI's stage timers;
+12. stages — the same capture through the stage CLIs and their file bus:
+   ``cli ingest`` (npz) -> ``cli mtd`` (B2 once per frame pair) -> ``cli
+   detect`` (B1 once per frame) over both frame pairs, the detections of
+   every (channel, slice) equal to ``cli e2e``'s bit for bit; one frame pair
+   through the ``.mat`` bus, equal to the npz bus bit for bit; ``ingest
+   --dbf-coeffs`` (13 seeded beams) within 1e-5 of the peak of a complex128
+   product; ``detect --thresholds 3 5 7`` (B1 once per threshold per
+   frame), its T=5 files equal to ``--threshold 5``'s; the RDMs and flags
+   written against B2's and B1's plain versions on the card; each stage's
+   wall seconds per frame, file I/O apart from device time;
+13. dmx outputs — ``cli dmx --gps --save-results`` (and ``--plots`` where
+   matplotlib is installed, decided before the run) over the G0 phase's
+   capture with a GPS track of the truth beside it: B3 and B1 twice per
+   frame, finite residuals for every long-pulse detection, the result
+   struct with the chain's config echo.
 
 The line before the last is a JSON summary of the kernels (with each one's
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -845,7 +860,9 @@ def phase_g0_slice(dev) -> dict:
               + " ".join(f"{k} {v:.3f}" for k, v in ms.items())
               + f" | sum {sum(ms.values()):.3f} | host .bin parse {parse_ms:.1f} ms/frame "
               f"({reader_cls.__name__}, wall clock)")
-    return {"launches": launches, "frames_per_s": rate, "stage_ms": ms, "parse_ms": parse_ms}
+        outputs = phase_dmx_outputs(dev, root, fd, r_true)
+    return {"launches": launches, "frames_per_s": rate, "stage_ms": ms, "parse_ms": parse_ms,
+            "outputs": outputs}
 
 
 def g2_echo_batch(prof, scr: float, n_frames: int, seed: int = 0) -> np.ndarray:
@@ -1089,12 +1106,258 @@ def phase_e2e(dev) -> dict:
             if not hits:
                 fail(f"e2e: target not detected at column {cols[0]} or {cols[1]} (+-1) in "
                      f"window {f['frame']}")
-    ms = [w[1] * 1e3 for w in windows]
-    print(f"e2e: cli simulate 3 frames G2 ({prof.n_channels} ch) in {sim_s:.1f} s; cli e2e {len(windows)} "
-          f"windows of {windows[0][2]} in {wall:.2f} s; mtd+cfar ms per window (StageTimers, "
-          f"synchronized) {[round(x, 3) for x in ms]}; launches {launches}; (window, rows, rows "
-          f"at column {cols[0]}/{cols[1]}) {out}")
-    return {"launches": launches, "ms_per_window": ms}
+        ms = [w[1] * 1e3 for w in windows]
+        print(f"e2e: cli simulate 3 frames G2 ({prof.n_channels} ch) in {sim_s:.1f} s; cli e2e "
+              f"{len(windows)} windows of {windows[0][2]} in {wall:.2f} s; mtd+cfar ms per window "
+              f"(StageTimers, synchronized) {[round(x, 3) for x in ms]}; launches {launches}; "
+              f"(window, rows, rows at column {cols[0]}/{cols[1]}) {out}")
+        stages = phase_stages(dev, root, frames, cols)
+    return {"launches": launches, "ms_per_window": ms, "stages": stages}
+
+
+def drive_stage(label: str, argv: list) -> tuple[dict, list]:
+    """One stage CLI run with the launch counters set to 0 just before it and
+    read just after: (launches, [(frame, {stage: wall s})] of every frame it
+    wrote)."""
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.kernels import rdm as krdm
+
+    records: list = []
+    krdm.doppler_rdm.launches = 0
+    kcfar.cascaded_cfar2d.launches = 0
+    rc = cli.main(argv, on_result=lambda idx, out, secs: records.append((idx, secs)))
+    torch.cuda.synchronize()
+    launches = {"doppler_rdm": krdm.doppler_rdm.launches,
+                "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches}
+    if rc != 0:
+        fail(f"stages: cli {label} rc {rc}")
+    return launches, records
+
+
+def per_frame(records: list) -> str:
+    """Mean wall seconds per frame of each stage of ``records``."""
+    names = records[0][1]
+    return " ".join(f"{k} {np.mean([r[1][k] for r in records]):.3f}" for k in names)
+
+
+def phase_stages(dev, root: str, e2e_frames: list, cols: tuple) -> dict:
+    """The e2e phase's capture through the stage CLIs and their file bus:
+    ``ingest`` -> ``mtd`` (B2 once per frame pair) -> ``detect`` (B1 once
+    per frame) in the npz form, equal to ``cli e2e``'s detections bit for
+    bit; one frame pair in the mat form, equal to the npz bus; ``ingest
+    --dbf-coeffs`` against a complex128 product; ``detect --thresholds``
+    (B1 once per threshold per frame), its T=5 files equal to ``--threshold
+    5``'s; the RDMs and flags that were written against the plain versions."""
+    import dataclasses
+
+    from radar_signal_process_tpu_torch.config import G2_PROFILE as prof
+    from radar_signal_process_tpu_torch.kernels import rdm as krdm
+    from radar_signal_process_tpu_torch.models.detect import clutter_cells, renotch_mask
+    from radar_signal_process_tpu_torch.models.mtd_pipeline import slice_cpi_window
+    from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
+    from radar_signal_process_tpu_torch.ops.mtd import notch_rows
+    from radar_signal_process_tpu_torch.ops.pulse_compression import segmented_pulse_compression
+    from radar_signal_process_tpu_torch.params import chain_params
+    from radar_signal_process_tpu_torch.utils import load_frame, matbus
+
+    cap = os.path.join(root, "cap")
+    d = {k: os.path.join(root, k) for k in ("frames", "rdm", "det", "sweep", "frames_mat",
+                                             "rdm_mat", "det_mat", "frames_dbf")}
+    on_card = ["--device", dev.type]
+    launches, seconds = {}, {}
+
+    def run(label, argv, n_frames, b2, b1):
+        launches[label], seconds[label] = drive_stage(label, argv)
+        want = {"doppler_rdm": b2, "cascaded_cfar2d": b1}
+        if launches[label] != want or len(seconds[label]) != n_frames:
+            fail(f"stages: cli {label} launches {launches[label]} (want {want}), "
+                 f"{len(seconds[label])} frames written (want {n_frames})")
+
+    # the npz bus over both frame pairs, at e2e's detection capacity (16)
+    t0 = time.perf_counter()
+    run("ingest", ["ingest", "--input", cap, "--output", d["frames"], "--frames", "3"], 3, 0, 0)
+    run("mtd", ["mtd", "--input", d["frames"], "--output", d["rdm"], "--frames", "2"] + on_card,
+        2, 2, 0)
+    run("detect", ["detect", "--input", d["rdm"], "--output", d["det"], "--frames", "2",
+                   "--max-detections", "16"] + on_card, 2, 0, 2)
+    wall = time.perf_counter() - t0
+    for f, window in enumerate(e2e_frames):
+        a = load_frame(d["det"], f)[0]
+        rows = [[b, w, int(v), int(r), float(x)] for b, w in np.ndindex(*a["det_valid"].shape[:2])
+                for v, r, x in zip(a["det_v"][b, w][a["det_valid"][b, w]],
+                                   a["det_r"][b, w][a["det_valid"][b, w]],
+                                   a["det_amp"][b, w][a["det_valid"][b, w]])]
+        if rows != window["detections"]:
+            fail(f"stages: frame {f} detections of the file bus differ from cli e2e's")
+        if not any(min(abs(r[3] - c) for c in cols) <= 1 for r in rows):
+            fail(f"stages: target not at column {cols[0]} or {cols[1]} in window {f}")
+    print(f"stages: cli ingest -> mtd -> detect (npz, 3 frames of {prof.n_channels} ch x "
+          f"{prof.prt_per_frame} x {prof.point_prt}, "
+          f"2 frame pairs) in {wall:.1f} s; launches ingest {launches['ingest']} mtd "
+          f"{launches['mtd']} detect {launches['detect']}; detections of every (channel, slice) "
+          f"of both pairs equal cli e2e's bit for bit ({sum(len(w['detections']) for w in e2e_frames)}"
+          f" rows), target at column {cols[0]}/{cols[1]} in both")
+
+    # one frame pair through the mat bus: the same numbers as the npz bus
+    run("ingest mat", ["ingest", "--input", cap, "--output", d["frames_mat"], "--frames", "2",
+                       "--format", "mat"], 2, 0, 0)
+    run("mtd mat", ["mtd", "--input", d["frames_mat"], "--output", d["rdm_mat"], "--frames", "1",
+                    "--format", "mat"] + on_card, 1, 1, 0)
+    run("detect mat", ["detect", "--input", d["rdm_mat"], "--output", d["det_mat"], "--frames",
+                       "1", "--format", "mat"] + on_card, 1, 0, 1)
+    npz = [load_frame(d[k], 0)[0] for k in ("frames", "rdm", "det")]
+    iq, _ = matbus.load_frame_mat(matbus.mat_frame_path(d["frames_mat"], 0))
+    rdm = matbus.load_mtd_mat(matbus.mat_frame_path(d["rdm_mat"], 0))
+    flags = matbus.load_cfar_mat(matbus.mat_frame_path(d["det_mat"], 0))
+    mat_ok = (np.array_equal(iq, npz[0]["iq"]) and np.array_equal(rdm, npz[1]["rdm"])
+              and np.array_equal(flags, npz[2]["flags"]))
+    print(f"stages: mat bus (sig_data_DBF_allprts -> MTD_win_all_beams -> cfarFlag_win_*) for "
+          f"frame pair 0: stage 1, RDMs and flags vs the npz bus -> "
+          f"{'bit-identical' if mat_ok else 'MISMATCH'}")
+    if not mat_ok:
+        fail("stages: the mat bus differs from the npz bus")
+
+    # DBF on the card against a complex128 product of the stage-1 channels
+    rng = np.random.default_rng(SEED + 6)
+    coeffs = rng.standard_normal((13, 16)) + 1j * rng.standard_normal((13, 16))
+    coeff_path = os.path.join(root, "dbf_stage.txt")
+    inter = np.empty((13, 32))
+    inter[:, 0::2], inter[:, 1::2] = coeffs.real, coeffs.imag
+    np.savetxt(coeff_path, inter)
+    run("ingest dbf", ["ingest", "--input", cap, "--output", d["frames_dbf"], "--frames", "1",
+                       "--dbf-coeffs", coeff_path] + on_card, 1, 0, 0)
+    beams = load_frame(d["frames_dbf"], 0)[0]["iq"]
+    c64 = np.loadtxt(coeff_path)
+    c64 = (c64[:, 0::2] + 1j * c64[:, 1::2]).astype(np.complex64).astype(np.complex128)
+    exact = (npz[0]["iq"].reshape(-1, 16).astype(np.complex128) @ c64.T).reshape(beams.shape)
+    dbf_err = float(np.abs(beams - exact).max() / np.abs(exact).max())
+    print(f"stages: ingest --dbf-coeffs (13 x 16, seeded) on the card: {beams.shape} "
+          f"{beams.dtype}, max error / peak vs complex128 product {dbf_err:.3e} (<= 1e-5) -> "
+          f"{'ok' if dbf_err <= 1e-5 and beams.dtype == np.complex64 else 'FAIL'}")
+    if dbf_err > 1e-5 or beams.dtype != np.complex64:
+        fail("stages: DBF beams off the complex128 product")
+
+    # the threshold sweep: B1 once per threshold per frame
+    thresholds = ("3", "5", "7")
+    run("detect sweep", ["detect", "--input", d["rdm"], "--output", d["sweep"], "--frames", "2",
+                         "--max-detections", "16", "--thresholds", *thresholds] + on_card,
+        2, 0, 2 * len(thresholds))
+    same = all(
+        all(np.array_equal(v, load_frame(d["det"], f)[0][k]) for k, v in
+            load_frame(f"{d['sweep']}_T5", f)[0].items()) for f in range(2))
+    dirs = sorted(p for p in os.listdir(root) if p.startswith("sweep_T"))
+    print(f"stages: detect --thresholds {' '.join(thresholds)}: dirs {dirs}, launches "
+          f"{launches['detect sweep']}; T=5 files vs --threshold 5 -> "
+          f"{'bit-identical' if same else 'MISMATCH'}")
+    if not same or dirs != [f"sweep_T{t}" for t in thresholds]:
+        fail("stages: the sweep's T=5 output differs from the single-threshold run")
+
+    # what mtd and detect wrote, against the plain versions on the card
+    params = chain_params(prof, device=dev)
+    notch = notch_rows(prof.prt_per_frame, prof.mtd.notch_divisor)
+    n_clutter = clutter_cells(prof, prof.prt_per_frame)
+    keep = torch.from_numpy(renotch_mask(prof, prof.prt_per_frame, n_clutter, 20)).to(dev)
+    b2_err, b1_diff = 0.0, 0
+    for f in range(2):
+        a, b = (torch.from_numpy(load_frame(d["frames"], i)[0]["iq"]).to(dev)
+                .permute(2, 0, 1).contiguous() for i in (f, f + 1))
+        pc = slice_cpi_window(segmented_pulse_compression(
+            torch.cat([a, b], dim=-2), prof, params.pc_spectra, params.pc_filter_lens), 4)
+        want = krdm.doppler_rdm_plain(pc, params.dft_re, params.dft_im, notch)
+        got = torch.from_numpy(load_frame(d["rdm"], f)[0]["rdm"]).to(dev)
+        peak = float(want.abs().max())
+        if not bool(((got - want).abs() <= 2e-5 * peak + RDM_RTOL * want.abs()).all()):
+            fail(f"stages: frame {f} RDM of cli mtd off the plain version")
+        b2_err = max(b2_err, float((got - want).abs().max()))
+        del pc, want
+        written = load_frame(d["det"], f)[0]
+        for t in thresholds:
+            cfg = dataclasses.replace(prof.cfar, threshold=float(t))
+            pf, pv = segmented_cfar(got * keep[:, None], prof.cfar_segments, cfg, n_clutter)
+            sw = load_frame(f"{d['sweep']}_T{t}", f)[0]
+            b1_diff += int((pf.cpu().numpy() != sw["flags"]).sum()
+                           + (pv.cpu().numpy() != sw["vflags"]).sum())
+            if t == "5":
+                b1_diff += int((pf.cpu().numpy() != written["flags"]).sum())
+    print(f"stages: RDMs cli mtd wrote vs B2's plain version on the card: max_abs_err "
+          f"{b2_err:.3e} (2e-5*peak + {RDM_RTOL}*|want|) -> ok; flags cli detect wrote vs the "
+          f"plain CFAR on those RDMs at T {'/'.join(thresholds)}: {b1_diff} differ -> "
+          f"{'bit-identical' if b1_diff == 0 else 'MISMATCH'}")
+    if b1_diff:
+        fail(f"stages: {b1_diff} flags written by cli detect differ from the plain CFAR")
+    print("stages: wall seconds per frame (device stages end in a synchronize; load/save are "
+          "npz or mat file I/O): " + " | ".join(
+              f"{k}: {per_frame(v)}" for k, v in seconds.items()) + f" | {SMI['line']}")
+    return {"launches": launches, "seconds": seconds, "b2_max_abs_err": b2_err,
+            "b1_mismatched_flags": b1_diff, "dbf_error_vs_c128": dbf_err}
+
+
+def phase_dmx_outputs(dev, root: str, fd: float, r_true: float) -> dict:
+    """``cli dmx --gps --save-results`` (and ``--plots`` where matplotlib is
+    installed) over the G0 phase's capture, with a GPS track of the truth
+    written beside it: residuals present and finite, the result struct
+    loads with the chain's config echo."""
+    import contextlib
+    import dataclasses
+    import io
+    import pkgutil
+
+    import scipy.io as sio
+
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.config import G0_PROFILE as prof
+    from radar_signal_process_tpu_torch.config import G0ChainConfig
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.kernels import pc_rdm as kpcr
+    from radar_signal_process_tpu_torch.models.g0_chain import C_LIGHT
+    from radar_signal_process_tpu_torch.ops.tables import freq_value
+
+    has_mpl = any(m.name == "matplotlib" for m in pkgutil.iter_modules())
+    print(f"dmx outputs: matplotlib {'is' if has_mpl else 'is not'} installed here; "
+          f"--plots {'is' if has_mpl else 'is not'} driven")
+    n = len(G0_FREQ_INDEX)
+    t_frame = prof.prt * prof.prt_per_frame
+    gps = os.path.join(root, "gps.txt")
+    with open(gps, "w") as fh:        # frame i (1-based) at time i * t_frame
+        for i in range(n + 1):
+            v = -(C_LIGHT / freq_value(G0_FREQ_INDEX[max(i, 1) - 1])) * fd / 2.0
+            fh.write(f"{i * t_frame:.6f} {r_true:.3f} {v:.4f} 100.0 50.0\n")
+    argv = ["dmx", "--input", root, "--frames", str(n), "--device", dev.type, "--gps", gps,
+            "--save-results", os.path.join(root, "results")]
+    if has_mpl:
+        argv += ["--plots", os.path.join(root, "plots")]
+    buf = io.StringIO()
+    kpcr.fused_pc_rdm.launches = 0
+    kcfar.cascaded_cfar2d.launches = 0
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {"fused_pc_rdm": kpcr.fused_pc_rdm.launches,
+                "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches}
+    out = json.loads(buf.getvalue())
+    if rc != 0 or launches != {"fused_pc_rdm": 2 * n, "cascaded_cfar2d": 2 * n}:
+        fail(f"dmx outputs: cli dmx rc {rc}, launches {launches} (want 2 of each per frame)")
+    n_long = sum(len(f["long"]["range_m"]) for f in out["frames"])
+    res = {k: out.get(f"gps_{k}_residuals") for k in ("range", "velocity")}
+    for k, r in res.items():
+        if not r or r["n"] != n_long or not all(np.isfinite([r["rmse"], r["bias"], r["max_abs"]])):
+            fail(f"dmx outputs: gps_{k}_residuals {r} (want {n_long} finite residuals)")
+    m = sio.loadmat(out["result_mat"], squeeze_me=True)
+    echo = [f.name for f in dataclasses.fields(G0ChainConfig)]
+    missing = [k for k in echo + ["resultEst_Struct", "freqIndSeries", "angleCodeSeries"]
+               if k not in m]
+    if missing or list(np.atleast_1d(m["freqIndSeries"])) != list(G0_FREQ_INDEX):
+        fail(f"dmx outputs: {os.path.basename(out['result_mat'])} lacks {missing} or has "
+             f"freqIndSeries {m.get('freqIndSeries')}")
+    plots = sorted(os.path.basename(p) for p in out.get("plots", {}).values())
+    if has_mpl and plots != ["estimates_long.png", "estimates_short.png"]:
+        fail(f"dmx outputs: plots {plots}")
+    print(f"dmx outputs: cli dmx --gps --save-results{' --plots' if has_mpl else ''} over the "
+          f"{n}-frame G0 capture: launches {launches}; range residuals {res['range']}; velocity "
+          f"residuals {res['velocity']}; {os.path.basename(out['result_mat'])} with "
+          f"{len(echo)} config fields; plots {plots}")
+    return {"launches": launches, "residuals": res, "plots": plots}
 
 
 def main() -> int:
@@ -1118,31 +1381,41 @@ def main() -> int:
     g1 = phase_g1(dev)
     sweep = phase_sweep(dev)
     e2e = phase_e2e(dev)
+    stages = e2e["stages"]
     b1_launches = {"stream": launches["cascaded_cfar2d"],
                    "dmx": g0["launches"]["cascaded_cfar2d"],
                    "sweep": sweep["launches"]["cascaded_cfar2d"],
-                   "e2e": e2e["launches"]["cascaded_cfar2d"]}
+                   "e2e": e2e["launches"]["cascaded_cfar2d"],
+                   "dmx outputs": g0["outputs"]["launches"]["cascaded_cfar2d"],
+                   **{k: v["cascaded_cfar2d"] for k, v in stages["launches"].items()
+                      if v["cascaded_cfar2d"]}}
     b2_launches = {"stream": launches["doppler_rdm"], "g1": g1["launches"]["doppler_rdm"],
                    "sweep": sweep["launches"]["doppler_rdm"],
-                   "e2e": e2e["launches"]["doppler_rdm"]}
+                   "e2e": e2e["launches"]["doppler_rdm"],
+                   **{k: v["doppler_rdm"] for k, v in stages["launches"].items()
+                      if v["doppler_rdm"]}}
     kernels = [
         {"name": "doppler_rdm", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/rdm.cu",
          "replaces": "radar_signal_process_tpu/kernels/rdm_pallas.py:114",
          "launches": sum(b2_launches.values()), "launches_by_path": b2_launches,
          **rdm_stats, "max_abs_err": max(rdm_stats["max_abs_err"], g1["b2"]["max_abs_err"]),
-         "g1": g1["b2"], "sweep": sweep["b2"]},
+         "g1": g1["b2"], "sweep": sweep["b2"], "stages_max_abs_err": stages["b2_max_abs_err"]},
         {"name": "cascaded_cfar2d", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/cfar.cu",
          "replaces": "radar_signal_process_tpu/kernels/cfar_pallas.py:136",
          "launches": sum(b1_launches.values()), "launches_by_path": b1_launches,
          **cfar_stats, "max_abs_err": max(cfar_stats["max_abs_err"], cfar_g0_stats["max_abs_err"],
                                           sweep["b1"]["max_abs_err"]),
-         "g0": cfar_g0_stats, "sweep": sweep["b1"]},
+         "g0": cfar_g0_stats, "sweep": sweep["b1"],
+         "stages_mismatched_flags": stages["b1_mismatched_flags"]},
         {"name": "fused_pc_rdm", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/pc_rdm.cu",
          "replaces": "radar_signal_process_tpu/kernels/pc_rdm_pallas.py:253",
-         "launches": g0["launches"]["fused_pc_rdm"], **b3_stats},
+         "launches": g0["launches"]["fused_pc_rdm"] + g0["outputs"]["launches"]["fused_pc_rdm"],
+         "launches_by_path": {"dmx": g0["launches"]["fused_pc_rdm"],
+                              "dmx outputs": g0["outputs"]["launches"]["fused_pc_rdm"]},
+         **b3_stats},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -50,6 +50,9 @@ class StreamingPipeline:
     :class:`StreamResult` carries: ``"full"`` (RDM + flag stacks),
     ``"flags"`` (no RDMs) or ``"detections"`` (neither).  ``device`` is
     where the chain runs; a CUDA device that is absent raises.
+    ``stc_curve_db`` (used when ``profile.mtd.istc`` is set) and ``pulses``
+    (measured matched-filter waveforms) are the stage-2 hooks of
+    :func:`models.mtd_pipeline.make_frame_processor`.
     """
 
     def __init__(
@@ -63,6 +66,8 @@ class StreamingPipeline:
         dbf_coeffs: np.ndarray | None = None,
         emit: str = "full",
         device: str | torch.device = "cuda",
+        stc_curve_db: np.ndarray | None = None,
+        pulses=None,
     ):
         if emit not in EMIT_MODES:
             raise ValueError(f"emit must be one of {EMIT_MODES}, got {emit!r}")
@@ -72,7 +77,8 @@ class StreamingPipeline:
         self.max_frames = max_frames
         self.counters = Counters()
         self._emit = emit
-        params = chain_params(profile, dbf_coeffs=dbf_coeffs, device=self.device)
+        params = chain_params(profile, dbf_coeffs=dbf_coeffs, pulses=pulses,
+                              stc_curve_db=stc_curve_db, device=self.device)
         self._dbf = params.dbf
         self._processor = FrameProcessor(profile, params, win_size)
         self._detector = Detector(

@@ -581,3 +581,88 @@ def test_g1_chain_on_card_matches_cpu(cuda_device):
     peak = float(want.abs().max())
     torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=B3_PEAK_ATOL * peak)
     assert int(got[:, 82:318].amax(dim=0).argmax()) + 82 == 128   # mid-segment peak
+
+
+# ------------------------------------------------------------ the stage bus
+_STAGE_PROFILE = dataclasses.replace(
+    G2_PROFILE, prt_per_frame=64, point_prt=344, segment_points=(40, 80, 224),
+    cfar_segments=((0, 40), (40, 120), (120, 344)), n_channels=2, n_beams=2,
+)
+
+
+@pytest.fixture
+def stage_frames(tmp_path, monkeypatch):
+    """``cli simulate`` (a target at -5.7 m/s, 60 m: segment-local cell 10)
+    then ``cli ingest``, 3 frames under the profile name STAGE."""
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.config import PROFILES
+
+    monkeypatch.setitem(PROFILES, "STAGE", _STAGE_PROFILE)
+    cap = str(tmp_path / "cap")
+    assert cli.main(["simulate", "--output", cap, "--profile", "STAGE", "--frames", "3",
+                     "--velocity", "-5.7", "--range", "60", "--scr", "25"]) == 0
+    assert cli.main(["ingest", "--input", cap, "--output", str(tmp_path / "frames"),
+                     "--profile", "STAGE", "--frames", "3"]) == 0
+    return tmp_path
+
+
+@pytest.mark.gpu
+def test_stage_bus_on_card_matches_plain(cuda_device, stage_frames):
+    """``cli mtd`` then ``cli detect`` on the card: B2 once per frame pair,
+    B1 once per frame; the RDMs within tolerance of the CPU run (plain
+    versions), the flags bit for bit those of the plain CFAR on the RDMs the
+    card wrote."""
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.models.detect import make_detector
+    from radar_signal_process_tpu_torch.utils import load_frame
+
+    root = stage_frames
+    common = ["--profile", "STAGE", "--frames", "2", "--win-size", "2"]
+    launches = (krdm.doppler_rdm.launches, kcfar.cascaded_cfar2d.launches)
+    for dev in ("cuda", "cpu"):
+        assert cli.main(["mtd", "--input", str(root / "frames"), "--output",
+                         str(root / f"rdm_{dev}"), "--device", dev] + common) == 0
+    assert krdm.doppler_rdm.launches == launches[0] + 2
+    assert cli.main(["detect", "--input", str(root / "rdm_cuda"), "--output", str(root / "det"),
+                     "--profile", "STAGE", "--frames", "2", "--device", "cuda"]) == 0
+    assert kcfar.cascaded_cfar2d.launches == launches[1] + 2
+    detector = make_detector(_STAGE_PROFILE, max_detections=64, device="cpu")
+    for f in range(2):
+        got = load_frame(str(root / "rdm_cuda"), f)[0]["rdm"]
+        want = load_frame(str(root / "rdm_cpu"), f)[0]["rdm"]
+        peak = np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=2e-5 * peak)
+        flags, vflags, dets = detector(torch.from_numpy(got))
+        arrays = load_frame(str(root / "det"), f)[0]
+        np.testing.assert_array_equal(arrays["flags"], flags.numpy())
+        np.testing.assert_array_equal(arrays["vflags"], vflags.numpy())
+        cols = set(arrays["det_r"][arrays["det_valid"]].tolist())
+        assert {50, 130} & cols, cols       # the target's mid and long segment cells
+
+
+@pytest.mark.gpu
+def test_detect_thresholds_on_card_equal_single_runs(cuda_device, stage_frames):
+    """``cli detect --thresholds`` on the card: one B1 launch per threshold
+    per frame, each threshold's files equal to ``--threshold T``'s."""
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.utils import load_frame
+
+    root = stage_frames
+    assert cli.main(["mtd", "--input", str(root / "frames"), "--output", str(root / "rdm"),
+                     "--profile", "STAGE", "--frames", "2", "--win-size", "2",
+                     "--device", "cuda"]) == 0
+    common = ["--input", str(root / "rdm"), "--profile", "STAGE", "--frames", "2",
+              "--device", "cuda"]
+    before = kcfar.cascaded_cfar2d.launches
+    assert cli.main(["detect", "--output", str(root / "sweep"), "--thresholds", "3", "5",
+                     "7"] + common) == 0
+    assert kcfar.cascaded_cfar2d.launches == before + 3 * 2
+    for t in ("3", "5", "7"):
+        assert cli.main(["detect", "--output", str(root / f"single{t}"), "--threshold", t]
+                        + common) == 0
+        for f in range(2):
+            got = load_frame(str(root / f"sweep_T{t}"), f)[0]
+            want = load_frame(str(root / f"single{t}"), f)[0]
+            assert sorted(got) == sorted(want)
+            for key in want:
+                np.testing.assert_array_equal(got[key], want[key], err_msg=f"T{t} {key}")

@@ -3,6 +3,7 @@ imported, its copies of the JAX package's host code (profiles, ``.bin``
 readers) equal the originals, its entry points default to the card, and
 chip_smoke.py refuses to run without a GPU."""
 
+import argparse
 import ast
 import dataclasses
 import pathlib
@@ -324,7 +325,8 @@ def test_port_config_equals_the_jax_package(name):
 
 
 _COPIED_MODULES = ("sim.targets", "sim.clutter", "sim.scr", "sim.packets_synth",
-                   "evalx.metrics")
+                   "evalx.metrics", "evalx.gps", "utils.logging", "utils.manifest",
+                   "utils.matbus", "utils.dataset", "ops.waveforms", "viz.plots")
 
 
 @pytest.mark.parametrize("name", _COPIED_MODULES)
@@ -440,6 +442,91 @@ def test_entry_points_default_to_the_card(entry):
         pytest.skip("a GPU is present; the default would build there")
     with pytest.raises(RuntimeError, match="is_available"):
         build()
+
+
+_STAGE_COMMANDS = {
+    "ingest --dbf-coeffs": ["ingest", "--dbf-coeffs", "{coeffs}"],
+    "mtd": ["mtd"],
+    "detect": ["detect"],
+    "detect --thresholds": ["detect", "--thresholds", "3", "5"],
+    "analyze --animate pc": ["analyze", "--animate", "pc", "--stage1-input", "{frames}"],
+}
+
+
+@pytest.mark.parametrize("name", list(_STAGE_COMMANDS))
+def test_stage_commands_default_to_the_card(tmp_path, monkeypatch, name):
+    """The stage commands' device work runs on ``--device``, ``cuda`` unless
+    the caller asks for the CPU: without a card the default raises, asked
+    for the CPU the command runs."""
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.config import PROFILES, G2_PROFILE
+    from radar_signal_process_tpu_torch.utils import save_frame
+
+    small = dataclasses.replace(G2_PROFILE, prt_per_frame=16, point_prt=128,
+                                segment_points=(24, 40, 64), n_channels=2, n_beams=2)
+    rng = np.random.default_rng(4)
+    frames, rdms = tmp_path / "frames", tmp_path / "rdm"
+    shape = (16, 128, 2)
+    for f in range(2):
+        iq = (rng.integers(-99, 99, shape) + 1j * rng.integers(-99, 99, shape)).astype(np.complex64)
+        save_frame(str(frames), f, {"iq": iq, "servo_angle": np.zeros(16)}, small)
+    rdm = np.abs(rng.standard_normal((2, 2, 16, 128))).astype(np.float32)
+    save_frame(str(rdms), 0, {"rdm": rdm, "servo_angle": np.zeros(16)}, small)
+    coeffs = tmp_path / "dbf.txt"
+    np.savetxt(coeffs, rng.standard_normal((2, 4)))
+    cap = tmp_path / "cap"
+    from radar_signal_process_tpu_torch.sim import write_g2_capture
+
+    write_g2_capture(str(cap), np.zeros((1, 16, 128, 2), np.complex64), small, data_type=1)
+    argv = [a.format(coeffs=coeffs, frames=frames) for a in _STAGE_COMMANDS[name]]
+    src = {"ingest": cap, "mtd": frames, "detect": rdms, "analyze": rdms}[argv[0]]
+    argv += ["--input", str(src), "--output", str(tmp_path / "out"), "--profile", "SMALL",
+             "--frames", "1"] if argv[0] != "analyze" else [
+        "--input", str(src), "--output", str(tmp_path / "out"), "--profile", "SMALL"]
+    monkeypatch.setitem(PROFILES, "SMALL", small)
+    assert cli.build_parser().parse_args(argv).device == "cuda"
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert list(tmp_path.glob("out*"))           # out, or out_T3 and out_T5
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the default would run there")
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli.main(argv + (["--force"] if argv[0] != "analyze" else []))
+
+
+def _subcommand_options(parser) -> dict:
+    """``{subcommand: {option string: default}}`` of a CLI parser."""
+    sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    return {name: {opt: action.default for action in p._actions
+                   for opt in action.option_strings if opt not in ("-h", "--help")}
+            for name, p in sub.choices.items()}
+
+
+# options of the JAX CLI the port does not take yet, each with the item that
+# brings it (ROADMAP A5: torch.distributed)
+_NOT_PORTED = {("e2e", "--mesh"): "A5", ("stream", "--mesh"): "A5"}
+
+
+@pytest.mark.parametrize("command", ["simulate", "ingest", "mtd", "detect", "e2e", "stream",
+                                     "dmx", "analyze", "sweep"])
+def test_port_parser_accepts_the_jax_options(command):
+    """Every subcommand of the JAX CLI exists in the port's and takes each of
+    its options with the same default, except the named ones that wait for
+    A5; the port's only extra option is ``--device``, default ``cuda``, on
+    every subcommand that runs a chain (all but ``simulate``)."""
+    from radar_signal_process_tpu import cli as jcli
+    from radar_signal_process_tpu_torch import cli as tcli
+
+    want = _subcommand_options(jcli.build_parser())
+    got = _subcommand_options(tcli.build_parser())
+    assert set(got) == set(want)
+    missing = {o for o in want[command] if o not in got[command]}
+    assert missing == {o for c, o in _NOT_PORTED if c == command}
+    assert set(got[command]) - set(want[command]) == (
+        set() if command == "simulate" else {"--device"})
+    assert got[command].get("--device", "cuda") == "cuda"
+    for opt, default in want[command].items():
+        if opt not in missing:
+            assert got[command][opt] == default, opt
 
 
 def test_chip_smoke_imports_only_the_port():
