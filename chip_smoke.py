@@ -74,7 +74,20 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    matplotlib is installed, decided before the run) over the G0 phase's
    capture with a GPS track of the truth beside it: B3 and B1 twice per
    frame, finite residuals for every long-pulse detection, the result
-   struct with the chain's config echo.
+   struct with the chain's config echo;
+14. mesh   — the multi-device layer on one card, run within phases 5 and 11
+   on their captures: ``cli stream --mesh 1x1`` over the slice capture in
+   an NCCL group of one
+   (``parallel.initialize_distributed``, ``make_mesh``): B2 and B1 once
+   per window, RDMs within the slice's tolerance of the unsharded stream's,
+   flags equal to B1's plain version (``segmented_cfar``) on them, the
+   target in every slice; one window's device time, sharded and unsharded;
+   B1 on the halo-extended blocks of sp = 2 and 4 shards of a full-G2
+   window, stitched, bit for bit against the plain version and B1 on the
+   whole RDM, both timed; and
+   ``cli e2e --mesh 1x1`` over the e2e capture, its rows those of ``cli
+   e2e`` for the slice, bit for bit.  NCCL takes one GPU per rank, so no
+   group of more than one rank runs on one card.
 
 The line before the last is a JSON summary of the kernels (with each one's
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -486,6 +499,7 @@ def phase_slice(dev) -> dict:
         first: dict = {}
         stamps: list = []
         found: list = []
+        windows: list = []
 
         def on_result(res):
             stamps.append(time.perf_counter())
@@ -495,12 +509,13 @@ def phase_slice(dev) -> dict:
             hit = (d.valid[beam] & ((d.v_idx[beam] - row).abs() <= 1)
                    & ((d.r_idx[beam] - col).abs() <= 1)).any(dim=-1)
             found.append(hit.cpu().tolist())
+            windows.append(res.rdms)
             if not first:
                 first.update(idx=res.frame_idx, rdms=res.rdms, flags=res.flags)
 
         argv = ["stream", "--input", cap, "--profile", "G2", "--frames", "4",
                 "--win-size", "4", "--dbf-coeffs", coeff_path, "--emit", "full",
-                "--device", "cuda"]
+                "--device", dev.type]
         krdm.doppler_rdm.launches = 0
         kcfar.cascaded_cfar2d.launches = 0
         t0 = time.perf_counter()
@@ -572,7 +587,166 @@ def phase_slice(dev) -> dict:
               + " ".join(f"{k} {v:.3f}" for k, v in ms.items())
               + f" | sum {sum(ms.values()):.3f} | host .bin parse "
               f"{parse_ms:.1f} ms/frame ({reader_cls.__name__}, wall clock)")
-    return launches
+        del first, rdm, flags, pc, want, got
+        mesh = phase_mesh(dev, cap, coeff_path, beam, row, col, windows, (a, b))
+    return launches, mesh
+
+
+def phase_mesh(dev, cap: str, coeff_path: str, beam: int, row: int, col: int,
+               windows: list, frames: tuple) -> dict:
+    """``cli stream --mesh 1x1`` over the slice phase's capture: an NCCL
+    group of one formed by ``initialize_distributed``, the sharded stream
+    (B2 and B1 once per window; at sp = 1 B1 runs on the rank's block as it
+    is), each window's RDMs within the slice's tolerance of the unsharded
+    stream's, its flags equal to B1's plain version (``segmented_cfar``) on
+    the returned RDM, the target in every slice; the device time of a
+    window, sharded and unsharded; then B1 on the halo-extended blocks of sp
+    = 2 and 4 shards, stitched, against the plain version and B1 on the
+    whole RDM."""
+    import torch.distributed as dist
+
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.config import G2_PROFILE as prof
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.kernels import rdm as krdm
+    from radar_signal_process_tpu_torch.models.detect import clutter_cells, renotch_mask
+    from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
+    from radar_signal_process_tpu_torch.parallel.sharding import extended_block_cfar
+
+    n_clutter = clutter_cells(prof, G2_PULSES)
+    keep = torch.from_numpy(renotch_mask(prof, G2_PULSES, n_clutter, 20)).to(dev)
+    cfg, segments = prof.cfar, prof.cfar_segments
+    got: list = []
+    found: list = []
+    group: dict = {}
+
+    def on_result(res):
+        if not group:      # the group is up while the stream runs
+            one = torch.ones(1, device=dev)
+            dist.all_reduce(one)
+            group.update(backend=dist.get_backend(), world=dist.get_world_size(),
+                         all_reduce=float(one))
+        d = res.detections
+        hit = (d.valid[beam] & ((d.v_idx[beam] - row).abs() <= 1)
+               & ((d.r_idx[beam] - col).abs() <= 1)).any(dim=-1)
+        found.append(hit.cpu().tolist())
+        got.append((res.rdms, res.flags))
+
+    argv = ["stream", "--input", cap, "--profile", "G2", "--frames", "4", "--win-size", "4",
+            "--dbf-coeffs", coeff_path, "--emit", "full", "--device", dev.type, "--mesh", "1x1"]
+    krdm.doppler_rdm.launches = 0
+    kcfar.cascaded_cfar2d.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(argv, on_result=on_result)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"doppler_rdm": krdm.doppler_rdm.launches,
+                "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches}
+    if rc != 0 or len(got) != len(windows) or dist.is_initialized():
+        fail(f"mesh: cli stream --mesh 1x1 rc {rc}, {len(got)} windows (want {len(windows)}), "
+             f"group left {'up' if dist.is_initialized() else 'down'}")
+    backend = {"cuda": "nccl", "cpu": "gloo"}[dev.type]
+    if group != {"backend": backend, "world": 1, "all_reduce": 1.0}:
+        fail(f"mesh: process group {group} (want {backend}, world 1)")
+    if launches != {"doppler_rdm": len(got), "cascaded_cfar2d": len(got)}:
+        fail(f"mesh: launches {launches} (want B2 and B1 once per window)")
+    if not all(all(w) for w in found):
+        fail(f"mesh: target not detected in beam {beam} in every slice: {found}")
+    worst, n_diff = 0.0, 0
+    for (rdm, flags), want in zip(got, windows):
+        peak = float(want.abs().max())
+        err = (rdm - want).abs()
+        if not bool((err <= 2e-5 * peak + RDM_RTOL * want.abs()).all()):
+            fail("mesh: sharded stream RDMs off the unsharded stream's")
+        worst = max(worst, float(err.max()))
+        plain, _ = segmented_cfar(rdm * keep[:, None], segments, cfg, n_clutter)
+        n_diff += int((plain != flags).sum())
+    print(f"mesh: cli stream --mesh 1x1 ({group['backend']} group of {group['world']}, "
+          f"all_reduce ok) 13 beams x 4 slices x 332 x 3404: {len(got)} windows in {wall:.2f} s; "
+          f"launches {launches}; RDMs vs the unsharded stream max_abs_err {worst:.3e} "
+          f"(2e-5*peak + {RDM_RTOL}*|want|) -> ok; flags vs the plain CFAR on the returned RDMs: "
+          f"{n_diff} differ -> {'bit-identical' if n_diff == 0 else 'MISMATCH'}; target found "
+          f"in beam {beam}, every slice of every window")
+    if n_diff:
+        fail(f"mesh: {n_diff} flags of the sharded stream differ from the plain CFAR on its RDMs")
+    del got, windows
+
+    # device time of one window: the sharded step (one frame compressed, the
+    # other carried) against the unsharded processor + detector
+    rdm_ms = _mesh_times(dev, prof, n_clutter, frames)
+
+    # B1 on the halo-extended blocks of sp shards, stitched, against the
+    # plain version and B1 on the whole RDM
+    rdm = (rdm_ms.pop("rdm") * keep[:, None]).reshape(-1, G2_PULSES, G2_RANGE).contiguous()
+    h = cfg.ref_cells + cfg.guard_cells + 2 * cfg.range_extend_cells
+    plain_f, plain_v = segmented_cfar(rdm, segments, cfg, n_clutter)
+    whole_f, whole_v = kcfar.cascaded_cfar2d(rdm, cfg, n_clutter, segments)
+    if not (torch.equal(whole_f, plain_f) and torch.equal(whole_v, plain_v)):
+        fail("mesh: B1 on the whole G2 window differs from its plain version")
+    ext = torch.cat([rdm[..., -h:], rdm, rdm[..., :h]], dim=-1)
+    route = {}
+    for sp in (2, 4):
+        local = G2_RANGE // sp
+        blocks = [(s * local, ext[..., s * local : s * local + local + 2 * h].contiguous())
+                  for s in range(sp)]
+        parts = [extended_block_cfar(blk, cfg, n_clutter, G2_RANGE, segments, c0, h)
+                 for c0, blk in blocks]
+        got_f, got_v = torch.cat([f for f, _ in parts], -1), torch.cat([v for _, v in parts], -1)
+        n_diff = int((got_f != plain_f).sum() + (got_v != plain_v).sum()
+                     + (got_f != whole_f).sum() + (got_v != whole_v).sum())
+        ms = cuda_ms({"blocks": lambda blocks=blocks: [
+                          extended_block_cfar(blk, cfg, n_clutter, G2_RANGE, segments, c0, h)
+                          for c0, blk in blocks],
+                      "whole": lambda: kcfar.cascaded_cfar2d(rdm, cfg, n_clutter, segments)})
+        route[sp] = {"mismatched_flags": n_diff, "blocks_ms": ms["blocks"],
+                     "whole_ms": ms["whole"], "block_shape": list(blocks[0][1].shape)}
+        print(f"mesh: B1 on the {sp} halo-extended blocks {tuple(blocks[0][1].shape)} of a "
+              f"full-G2 window (shards cut the segments), centres stitched vs the plain CFAR "
+              f"and B1 on the whole {tuple(rdm.shape)}: {n_diff} flags differ -> "
+              f"{'bit-identical' if n_diff == 0 else 'MISMATCH'}; median ms (CUDA events) "
+              f"{sp} block calls {ms['blocks']:.4f}, whole {ms['whole']:.4f} | {SMI['line']}")
+        if n_diff:
+            fail(f"mesh: B1 on sp={sp} extended blocks differs from the whole RDM's flags")
+    return {"launches": launches, "window_ms": rdm_ms, "b1_blocks": route}
+
+
+def _mesh_times(dev, prof, n_clutter: int, frames: tuple) -> dict:
+    """Device ms of one G2 window (CUDA events, in turns): the world-1
+    sharded step plus detection extraction, and the unsharded frame
+    processor plus detector, on the same two DBF'd frames."""
+    import torch.distributed as dist
+
+    from radar_signal_process_tpu_torch.models.detect import make_detector
+    from radar_signal_process_tpu_torch.models.mtd_pipeline import make_frame_processor
+    from radar_signal_process_tpu_torch.ops.measure import extract_detections
+    from radar_signal_process_tpu_torch.parallel import make_mesh
+    from radar_signal_process_tpu_torch.parallel.multihost import initialize_distributed
+    from radar_signal_process_tpu_torch.parallel.sharding import make_sharded_stream
+
+    a, b = frames
+    initialize_distributed(dev.type)
+    try:
+        mesh = make_mesh(("dp", "sp"), (1, 1), dev.type)
+        compress, step = make_sharded_stream(prof, mesh, n_clutter=n_clutter, win_size=4,
+                                             renotch_divisor=20)
+        processor = make_frame_processor(prof, 4, device=dev)
+        detector = make_detector(prof, n_clutter=n_clutter, max_detections=16, device=dev)
+        pc = compress(a)
+
+        def sharded():
+            _, rdm, flags, _ = step(pc, b)
+            return extract_detections(flags, rdm, 16)
+
+        with torch.inference_mode():
+            ms = cuda_ms({"sharded": sharded, "unsharded": lambda: detector(processor(a, b))},
+                         reps=5)
+            rdm = step(pc, b)[1]
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh: one G2 window, device ms (CUDA events, median of 5, in turns): world-1 "
+          f"sharded step + extract {ms['sharded']:.3f} (one frame compressed, one carried), "
+          f"unsharded processor + detector {ms['unsharded']:.3f} | {SMI['line']}")
+    return {**ms, "rdm": rdm}
 
 
 def rdm_error(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, float]:
@@ -1111,8 +1285,47 @@ def phase_e2e(dev) -> dict:
               f"{len(windows)} windows of {windows[0][2]} in {wall:.2f} s; mtd+cfar ms per window "
               f"(StageTimers, synchronized) {[round(x, 3) for x in ms]}; launches {launches}; "
               f"(window, rows, rows at column {cols[0]}/{cols[1]}) {out}")
+        mesh = phase_e2e_mesh(dev, cap, frames)
         stages = phase_stages(dev, root, frames, cols)
-    return {"launches": launches, "ms_per_window": ms, "stages": stages}
+    return {"launches": launches, "ms_per_window": ms, "stages": stages, "mesh": mesh}
+
+
+def phase_e2e_mesh(dev, cap: str, e2e_frames: list, win_slice: int = 1) -> dict:
+    """``cli e2e --mesh 1x1 --win-slice 1`` over the e2e capture: an NCCL
+    group of one, B2 and B1 once per window,
+    and the rows of ``cli e2e`` for that slice, bit for bit."""
+    import contextlib
+    import io
+
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.kernels import rdm as krdm
+
+    buf = io.StringIO()
+    windows: list = []
+    krdm.doppler_rdm.launches = 0
+    kcfar.cascaded_cfar2d.launches = 0
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["e2e", "--input", cap, "--frames", "2", "--device", dev.type, "--mesh", "1x1",
+                       "--win-slice", str(win_slice)],
+                      on_result=lambda frame, rdm, flags, dets, s: windows.append((frame, s)))
+    torch.cuda.synchronize()
+    launches = {"doppler_rdm": krdm.doppler_rdm.launches,
+                "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches}
+    got = json.loads(buf.getvalue())["frames"]
+    want = [{"frame": f["frame"], "detections": [r for r in f["detections"] if r[1] == win_slice]}
+            for f in e2e_frames]
+    same = ([f["frame"] for f in got] == [f["frame"] for f in want]
+            and all(sorted(g["detections"]) == sorted(w["detections"]) for g, w in zip(got, want)))
+    print(f"mesh: cli e2e --mesh 1x1 --win-slice {win_slice}: rc {rc}, launches {launches}; "
+          f"rows vs cli e2e's of slice {win_slice} ({sum(len(w['detections']) for w in want)} rows) "
+          f"-> {'bit-identical' if same else 'MISMATCH'}; mtd+cfar ms per window "
+          f"{[round(s * 1e3, 3) for _, s in windows]}")
+    if rc != 0 or launches != {"doppler_rdm": 2, "cascaded_cfar2d": 2}:
+        fail(f"mesh: cli e2e --mesh 1x1 rc {rc}, launches {launches} (want 2 of each)")
+    if not same:
+        fail("mesh: cli e2e --mesh 1x1 rows differ from cli e2e's")
+    return {"launches": launches, "ms_per_window": [s * 1e3 for _, s in windows]}
 
 
 def drive_stage(label: str, argv: list) -> tuple[dict, list]:
@@ -1370,7 +1583,7 @@ def main() -> int:
     rdm_stats, rdm_out = phase_rdm(dev)
     cfar_stats = phase_cfar(dev, rdm_out)
     del rdm_out
-    launches = phase_slice(dev)
+    launches, mesh = phase_slice(dev)
     from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
 
     chain = G0Chain(device=dev)
@@ -1383,13 +1596,18 @@ def main() -> int:
     e2e = phase_e2e(dev)
     stages = e2e["stages"]
     b1_launches = {"stream": launches["cascaded_cfar2d"],
+                   "stream --mesh": mesh["launches"]["cascaded_cfar2d"],
+                   "e2e --mesh": e2e["mesh"]["launches"]["cascaded_cfar2d"],
                    "dmx": g0["launches"]["cascaded_cfar2d"],
                    "sweep": sweep["launches"]["cascaded_cfar2d"],
                    "e2e": e2e["launches"]["cascaded_cfar2d"],
                    "dmx outputs": g0["outputs"]["launches"]["cascaded_cfar2d"],
                    **{k: v["cascaded_cfar2d"] for k, v in stages["launches"].items()
                       if v["cascaded_cfar2d"]}}
-    b2_launches = {"stream": launches["doppler_rdm"], "g1": g1["launches"]["doppler_rdm"],
+    b2_launches = {"stream": launches["doppler_rdm"],
+                   "stream --mesh": mesh["launches"]["doppler_rdm"],
+                   "e2e --mesh": e2e["mesh"]["launches"]["doppler_rdm"],
+                   "g1": g1["launches"]["doppler_rdm"],
                    "sweep": sweep["launches"]["doppler_rdm"],
                    "e2e": e2e["launches"]["doppler_rdm"],
                    **{k: v["doppler_rdm"] for k, v in stages["launches"].items()
@@ -1408,7 +1626,8 @@ def main() -> int:
          **cfar_stats, "max_abs_err": max(cfar_stats["max_abs_err"], cfar_g0_stats["max_abs_err"],
                                           sweep["b1"]["max_abs_err"]),
          "g0": cfar_g0_stats, "sweep": sweep["b1"],
-         "stages_mismatched_flags": stages["b1_mismatched_flags"]},
+         "stages_mismatched_flags": stages["b1_mismatched_flags"],
+         "extended_blocks": mesh["b1_blocks"], "mesh_window_ms": mesh["window_ms"]},
         {"name": "fused_pc_rdm", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/pc_rdm.cu",
          "replaces": "radar_signal_process_tpu/kernels/pc_rdm_pallas.py:253",

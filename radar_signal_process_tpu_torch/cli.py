@@ -29,14 +29,22 @@ subcommand of ``radar_signal_process_tpu.cli`` prints; the chains run on
 * ``sweep`` runs the threshold x SCR sweep (``evalx.sweep``) and prints its
   table and the metrics as JSON.
 
-``--mesh`` (``e2e``, ``stream``) is not ported; ``e2e --beam/--win-slice``
-and ``stream --block-windows`` are accepted and, as on the JAX package's
-device path, unused.
+``e2e --mesh DPxSP`` and ``stream --mesh DPxSP`` run over a ``(dp, sp)``
+mesh of ranks (``parallel``): start one process per rank with ``python -m
+torch.distributed.run --nproc_per_node N -m radar_signal_process_tpu_torch.cli
+...`` (NCCL on the card, one GPU per rank; gloo with ``--device cpu``), or
+run ``--mesh 1x1`` in a plain process.  ``dp * sp`` must be the number of
+ranks; only rank 0 prints, and every rank leaves on exit the process group
+the command formed (a group its caller formed stays up).
+``e2e --beam`` and ``stream --block-windows`` are accepted and, as on the
+JAX package's device path, unused; ``e2e --win-slice`` selects the slice
+that ``--mesh`` runs.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -602,17 +610,48 @@ def cmd_analyze(args, on_result: Optional[Callable] = None) -> int:
 
 
 # ----------------------------------------------------------- in-memory chains
-def _det_rows(dets) -> list:
-    """Batched (beam, slice) DetectionList -> ``[beam, win, v, r, amp]`` rows."""
-    valid = dets.valid.cpu().numpy()
-    v_idx, r_idx = dets.v_idx.cpu().numpy(), dets.r_idx.cpu().numpy()
-    amp = dets.amplitude.cpu().numpy()
+def _det_rows(dets, win_slice: int | None = None) -> list:
+    """Batched (beam, slice) DetectionList -> ``[beam, win, v, r, amp]`` rows;
+    with ``win_slice`` the list is batched over beams only, all of that slice."""
+    valid, v_idx, r_idx, amp = (
+        x.cpu().numpy() if win_slice is None else x.cpu().numpy()[:, None]
+        for x in (dets.valid, dets.v_idx, dets.r_idx, dets.amplitude))
     return [
-        [int(b), int(w), int(v), int(r), float(a)]
+        [int(b), int(w if win_slice is None else win_slice), int(v), int(r), float(a)]
         for b, w in np.ndindex(*valid.shape[:2])
         for v, r, a in zip(v_idx[b, w][valid[b, w]], r_idx[b, w][valid[b, w]],
                            amp[b, w][valid[b, w]])
     ]
+
+
+@contextlib.contextmanager
+def _mesh_of(args, device: torch.device):
+    """``--mesh DPxSP``: the (dp, sp) mesh over this command's ranks, or
+    ``None`` without it.  A process group formed here is left on exit; one
+    the caller formed stays up."""
+    if not getattr(args, "mesh", None):
+        yield None
+        return
+    import torch.distributed as dist
+
+    from radar_signal_process_tpu_torch.parallel import make_mesh
+    from radar_signal_process_tpu_torch.parallel.multihost import initialize_distributed
+
+    dp, sp = (int(x) for x in args.mesh.lower().split("x"))
+    formed = not dist.is_initialized()
+    initialize_distributed(device.type)
+    try:
+        yield make_mesh(("dp", "sp"), (dp, sp), device.type)
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _is_root() -> bool:
+    """Rank 0 of the process group, or a process without one."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def cmd_e2e(args, on_result: Optional[Callable] = None) -> int:
@@ -629,6 +668,9 @@ def cmd_e2e(args, on_result: Optional[Callable] = None) -> int:
 
     profile = PROFILES[args.profile]
     device = resolve_device(args.device)
+    if args.mesh:
+        with _mesh_of(args, device) as mesh:
+            return _e2e_mesh(args, profile, device, mesh, on_result)
     reader = g2_reader_class(args.native)(args.input, profile)
     process = make_frame_processor(profile, win_size=args.win_size, device=device)
     detector = make_detector(profile, clutter_v=args.clutter_v,
@@ -654,6 +696,80 @@ def cmd_e2e(args, on_result: Optional[Callable] = None) -> int:
             prev = cur
     print(json.dumps({"frames": results}))
     log.info("e2e timing (%s)\n%s", device, timers.report())
+    return 0
+
+
+def _e2e_mesh(args, profile, device, mesh, on_result: Optional[Callable] = None) -> int:
+    """``e2e --mesh``: slice ``--win-slice`` of every window over the mesh
+    (``parallel.make_sharded_pipeline``): every beam of the capture, padded
+    to the dp extent, PRT-sharded then range-sharded over sp, the halo CFAR
+    after the divisor-20 re-notch; rank 0 gathers the RDMs and flags and
+    prints the rows of every beam of the capture (where the JAX ``e2e
+    --mesh`` keeps the profile's ``n_beams`` rows, ROADMAP C11).
+    ``on_result`` (rank 0) sees ``(frame, rdm, flags, dets, seconds)``, the
+    stacks (beams, n_prt, n_points)."""
+    from radar_signal_process_tpu_torch.ingest import g2_reader_class
+    from radar_signal_process_tpu_torch.models.detect import RENOTCH_DIVISOR, clutter_cells
+    from radar_signal_process_tpu_torch.models.mtd_pipeline import window_slice_starts
+    from radar_signal_process_tpu_torch.ops.measure import extract_detections
+    from radar_signal_process_tpu_torch.parallel.mesh import axis_index, axis_size
+    from radar_signal_process_tpu_torch.parallel.sharding import (
+        gather_blocks,
+        local_block,
+        make_sharded_pipeline,
+    )
+
+    reader = g2_reader_class(args.native)(args.input, profile)
+    n_prt = profile.prt_per_frame
+    run = make_sharded_pipeline(
+        profile, mesh, n_clutter=clutter_cells(profile, n_prt, args.clutter_v),
+        renotch_divisor=RENOTCH_DIVISOR)
+    start = window_slice_starts(n_prt, args.win_size)[args.win_slice]
+    dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
+    if n_prt % sp:
+        raise ValueError(f"{n_prt} PRTs do not split over sp={sp}")
+    # this rank's rows [r0, r1) of the doubled CPI (prev ++ cur)
+    r0 = start + axis_index(mesh, "sp") * (n_prt // sp)
+    r1 = r0 + n_prt // sp
+    timers = StageTimers(device)
+    prev = None
+    results = []
+    with torch.inference_mode():
+        for frame_idx in range(args.frames + 1):
+            with timers.stage("read"):
+                res = reader.read_frame(frame_idx)
+            if not res.frame_completed:
+                break
+            cur = torch.from_numpy(np.asarray(res.iq, dtype=np.complex64)).permute(2, 0, 1)
+            if prev is not None:
+                with timers.stage("h2d"):
+                    # the block is cut on the host, so each rank copies its
+                    # own rows and beams only
+                    echo = torch.cat([prev[:, min(r0, n_prt) : min(r1, n_prt)],
+                                      cur[:, max(r0, n_prt) - n_prt : max(r1, n_prt) - n_prt]],
+                                     dim=1)
+                    n_beams = echo.shape[0]
+                    if n_beams % dp:
+                        echo = torch.cat([echo, echo.new_zeros(
+                            (-n_beams % dp,) + tuple(echo.shape[1:]))])
+                    x = local_block(echo, mesh, ("dp", None, None)).contiguous().to(device)
+                with timers.stage("mtd+cfar"):
+                    rdm, flags, _ = run(x)
+                    spec = ("dp", None, "sp")
+                    rdm, flags = gather_blocks(rdm, mesh, spec), gather_blocks(flags, mesh, spec)
+                    if rdm is not None:
+                        rdm, flags = rdm[:n_beams], flags[:n_beams]
+                        dets = extract_detections(flags, rdm, args.max_detections)
+                if rdm is not None:
+                    results.append({"frame": frame_idx - 1,
+                                    "detections": _det_rows(dets, args.win_slice)})
+                    if on_result is not None:
+                        on_result(frame_idx - 1, rdm, flags, dets,
+                                  timers.records["mtd+cfar"][-1])
+            prev = cur
+    if _is_root():
+        print(json.dumps({"frames": results}))
+    log.info("e2e --mesh %s timing (%s)\n%s", args.mesh, device, timers.report())
     return 0
 
 
@@ -686,6 +802,7 @@ def cmd_sweep(args, on_result: Optional[Callable] = None) -> int:
 def cmd_stream(args, on_result: Optional[Callable] = None) -> int:
     """Streaming chain: overlapped host ingest + device compute, all-beam
     detection.  ``on_result`` (if given) sees every ``StreamResult``."""
+    from radar_signal_process_tpu_torch.device import resolve_device
     from radar_signal_process_tpu_torch.ingest import g2_reader_class
     from radar_signal_process_tpu_torch.models.streaming import StreamingPipeline
     from radar_signal_process_tpu_torch.ops.dbf import load_dbf_coeffs
@@ -700,33 +817,40 @@ def cmd_stream(args, on_result: Optional[Callable] = None) -> int:
     if args.dbf_coeffs:
         coeffs = load_dbf_coeffs(args.dbf_coeffs, profile.n_channels)
     stc_curve, profile = _istc_profile(args, profile)
-    pipe = StreamingPipeline(
-        reader_cls(args.input, profile),
-        profile,
-        win_size=args.win_size,
-        max_frames=args.frames,
-        clutter_v=args.clutter_v,
-        max_detections=args.max_detections,
-        dbf_coeffs=coeffs,
-        emit=args.emit,
-        device=args.device,
-        stc_curve_db=stc_curve,
-        pulses=_parse_match_waveforms(args, profile),
-    )
-    frames_out = []
-    t_prev = time.perf_counter()
-    for res in pipe:
-        now = time.perf_counter()
-        frames_out.append({
-            "frame": res.frame_idx,
-            "window_latency_ms": round((now - t_prev) * 1e3, 1),
-            "cfar_hits": res.cfar_hits,
-            "detections_per_beam": res.detections.valid.any(dim=-1).sum(dim=-1).tolist(),
-        })
-        if on_result is not None:
-            on_result(res)
+    device = resolve_device(args.device)
+    with _mesh_of(args, device) as mesh:
+        pipe = StreamingPipeline(
+            reader_cls(args.input, profile),
+            profile,
+            win_size=args.win_size,
+            max_frames=args.frames,
+            clutter_v=args.clutter_v,
+            max_detections=args.max_detections,
+            dbf_coeffs=coeffs,
+            emit=args.emit,
+            device=device,
+            stc_curve_db=stc_curve,
+            pulses=_parse_match_waveforms(args, profile),
+            mesh=mesh,
+        )
+        root = _is_root()
+        frames_out = []
         t_prev = time.perf_counter()
-    print(json.dumps({"frames": frames_out, "counters": pipe.counters.snapshot()}))
+        for res in pipe:
+            if not root:                 # rank 0 holds the gathered windows
+                continue
+            now = time.perf_counter()
+            frames_out.append({
+                "frame": res.frame_idx,
+                "window_latency_ms": round((now - t_prev) * 1e3, 1),
+                "cfar_hits": res.cfar_hits,
+                "detections_per_beam": res.detections.valid.any(dim=-1).sum(dim=-1).tolist(),
+            })
+            if on_result is not None:
+                on_result(res)
+            t_prev = time.perf_counter()
+    if root:
+        print(json.dumps({"frames": frames_out, "counters": pipe.counters.snapshot()}))
     return 0
 
 
@@ -998,9 +1122,12 @@ def build_parser() -> argparse.ArgumentParser:
     e2e.add_argument("--frames", type=int, default=3)
     e2e.add_argument("--win-size", type=int, default=4)
     e2e.add_argument("--beam", type=int, default=0,
-                     help="unused without --mesh (every beam is reported)")
+                     help="unused (every beam is reported)")
     e2e.add_argument("--win-slice", type=int, default=0,
-                     help="unused without --mesh (every slice is reported)")
+                     help="the window slice --mesh runs (without it every slice is reported)")
+    e2e.add_argument("--mesh", default=None, metavar="DPxSP",
+                     help="run slice --win-slice over a (dp, sp) mesh of ranks, e.g. 1x4: "
+                          "beams data-parallel, range sharded with halo-exchange CFAR")
     e2e.add_argument("--clutter-v", type=float, default=3.0)
     e2e.add_argument("--max-detections", type=int, default=16)
     e2e.add_argument("--native", action=argparse.BooleanOptionalAction, default=True)
@@ -1026,6 +1153,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "identical across modes")
     _match_waveform_arg(st)
     st.add_argument("--native", action=argparse.BooleanOptionalAction, default=True)
+    st.add_argument("--mesh", default=None, metavar="DPxSP",
+                    help="stream over a (dp, sp) mesh of ranks with the compressed previous "
+                         "frame carried between windows (parallel.make_sharded_stream), e.g. 2x4")
     _device_arg(st)
     st.set_defaults(fn=cmd_stream)
 

@@ -135,6 +135,36 @@ def plan_key(
             cfg.range_extend_cells, cfg.method, n_sms)
 
 
+def extended_segments(
+    n_global: int, segments: Sequence[Tuple[int, int]], col0: int, local_n: int, halo: int,
+) -> Tuple[Tuple[int, int], ...]:
+    """Segment table of a range shard's halo-extended block.
+
+    The block holds global columns ``[col0 - halo, col0 + local_n + halo)``.
+    Each real segment (``segments`` tile ``[0, n_global)``) is clipped to
+    that range; each run of wrapped columns (global index < 0 or >=
+    ``n_global``) gets one dummy segment of its own.  The table is in block
+    columns and tiles ``[0, local_n + 2 * halo)``.  Run over the block,
+    B1 decides each segment alone, so the dummy segments never reach a real
+    column, and a clip at the block's edge changes only columns within
+    ref + guard of it: with ``halo = ref + guard + 2E`` the centre columns,
+    their cascade candidates and those candidates' windows stay clear of it.
+    """
+    edges = [0] + [b for _, b in segments]
+    if [a for a, _ in segments] != edges[:-1] or edges[-1] != n_global:
+        raise ValueError(f"segments {segments} do not tile [0, {n_global})")
+    if not 0 <= halo <= local_n or not 0 <= col0 <= n_global - local_n:
+        raise ValueError(
+            f"block at column {col0} of {local_n} (+{halo} halo) outside [0, {n_global})"
+        )
+    lo, hi = col0 - halo, col0 + local_n + halo
+    table = [(lo, 0)] if lo < 0 else []
+    table += [(max(a, lo), min(b, hi)) for a, b in segments if max(a, lo) < min(b, hi)]
+    if hi > n_global:
+        table.append((n_global, hi))
+    return tuple((a - lo, b - lo) for a, b in table)
+
+
 @functools.lru_cache(maxsize=64)
 def _launch_table(segments, nvu: int, batch: int, r: int, g: int, e: int, method: int,
                   n_sms: int):

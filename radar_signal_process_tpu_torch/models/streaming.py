@@ -10,10 +10,17 @@ previous frame into a doubled-CPI window
 and the detector over every (beam, slice) RDM (``main_cfar.m:85-96``).
 All device work is issued on one stream, so no cross-stream events are
 needed; the pinned copy makes the host-to-device transfer asynchronous.
+
+With ``mesh`` (the JAX ``models/streaming.py:98-174`` branch) every rank of
+the mesh runs the pipeline over the same capture: beams over ``dp`` (padded
+to it), slow time then range over ``sp``, the compressed previous frame
+carried between windows (``parallel.make_sharded_stream``), and the stacks
+gathered on rank 0, which extracts the detections.
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 import time
@@ -24,9 +31,16 @@ import torch
 
 from radar_signal_process_tpu_torch.config import RadarProfile
 from radar_signal_process_tpu_torch.device import resolve_device
-from radar_signal_process_tpu_torch.models.detect import Detector, clutter_cells
+from radar_signal_process_tpu_torch.models.detect import RENOTCH_DIVISOR, Detector, clutter_cells
 from radar_signal_process_tpu_torch.models.mtd_pipeline import FrameProcessor
 from radar_signal_process_tpu_torch.ops.dbf import apply_dbf
+from radar_signal_process_tpu_torch.ops.measure import extract_detections
+from radar_signal_process_tpu_torch.parallel.mesh import axis_size
+from radar_signal_process_tpu_torch.parallel.sharding import (
+    gather_blocks,
+    local_block,
+    make_sharded_stream,
+)
 from radar_signal_process_tpu_torch.params import chain_params
 from radar_signal_process_tpu_torch.utils import Counters
 
@@ -53,6 +67,11 @@ class StreamingPipeline:
     ``stc_curve_db`` (used when ``profile.mtd.istc`` is set) and ``pulses``
     (measured matched-filter waveforms) are the stage-2 hooks of
     :func:`models.mtd_pipeline.make_frame_processor`.
+
+    ``mesh`` (a ``DeviceMesh`` with axes ``("dp", "sp")`` on ``device``'s
+    type, ``parallel.make_mesh``) runs the sharded stream on every rank;
+    rank 0 yields the gathered stacks and the detections, the other ranks
+    the window index with ``None`` in their place.
     """
 
     def __init__(
@@ -68,6 +87,7 @@ class StreamingPipeline:
         device: str | torch.device = "cuda",
         stc_curve_db: np.ndarray | None = None,
         pulses=None,
+        mesh=None,
     ):
         if emit not in EMIT_MODES:
             raise ValueError(f"emit must be one of {EMIT_MODES}, got {emit!r}")
@@ -80,15 +100,42 @@ class StreamingPipeline:
         params = chain_params(profile, dbf_coeffs=dbf_coeffs, pulses=pulses,
                               stc_curve_db=stc_curve_db, device=self.device)
         self._dbf = params.dbf
-        self._processor = FrameProcessor(profile, params, win_size)
-        self._detector = Detector(
-            profile, clutter_cells(profile, profile.prt_per_frame, clutter_v),
-            max_detections, device=self.device,
-        )
+        n_clutter = clutter_cells(profile, profile.prt_per_frame, clutter_v)
+        self._mesh = mesh
+        if mesh is not None:
+            self._init_mesh(mesh, n_clutter, win_size, max_detections, stc_curve_db, pulses)
+        else:
+            self._processor = FrameProcessor(profile, params, win_size)
+            self._detector = Detector(profile, n_clutter, max_detections, device=self.device)
         # two parsed frames in flight: the producer stays one frame ahead
         self._queue: "queue.Queue[Optional[tuple]]" = queue.Queue(maxsize=2)
         self._thread: Optional[threading.Thread] = None
         self._producer_error: Optional[BaseException] = None
+
+    def _init_mesh(self, mesh, n_clutter, win_size, max_detections, stc_curve_db, pulses):
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"mesh on {mesh.device_type}, stream on {self.device}")
+        # Parity floor (ROADMAP C3): below a cropped velocity extent of
+        # 2*(ref+guard)+1 cells some cells have both reference windows out
+        # of range, and the roll-form and padded-form edge fallbacks read
+        # different data, so this stream's hits may differ from the JAX
+        # package's mesh and single-device streams; real profiles (G2: 303
+        # used rows) are far above it
+        nvu = self.profile.prt_per_frame - 2 * n_clutter - 1
+        span = 2 * (self.profile.cfar.ref_cells + self.profile.cfar.guard_cells)
+        if nvu <= span:
+            logging.getLogger("radar_tpu_torch.streaming").warning(
+                "mesh stream: cropped velocity extent %d <= 2*(ref+guard)=%d -- below the "
+                "CFAR cross-implementation parity floor; hit counts may differ from the "
+                "JAX package's at window edges (ops/cfar.py)", nvu, span,
+            )
+        self._compress, self._step = make_sharded_stream(
+            self.profile, mesh, n_clutter=n_clutter, win_size=win_size,
+            renotch_divisor=RENOTCH_DIVISOR, stc_curve_db=stc_curve_db, pulses=pulses,
+        )
+        self._max_detections = max_detections
+        self._carry: dict = {}       # {frame index: its compressed block}
+        self._n_beams = 0
 
     # ------------------------------------------------------------- producer
     def _produce(self) -> None:
@@ -119,17 +166,42 @@ class StreamingPipeline:
 
     # ------------------------------------------------------------- consumer
     def _stage(self, host: torch.Tensor) -> torch.Tensor:
-        """(prt, samples, channels) host frame -> (beams, prt, samples) on device."""
+        """(prt, samples, channels) host frame -> (beams, prt, samples) on
+        device; with a mesh, this rank's block: its sp rows (cut before the
+        copy), then its dp beams of the beams padded to the dp extent."""
+        if self._mesh is not None:
+            host = local_block(host, self._mesh, ("sp",))
         frame = host.to(self.device, non_blocking=True)
         if self._dbf is not None:
             frame = apply_dbf(frame, self._dbf)
-        return frame.permute(2, 0, 1).contiguous()
+        frame = frame.permute(2, 0, 1)
+        if self._mesh is None:
+            return frame.contiguous()
+        self._n_beams = frame.shape[0]
+        pad = (-frame.shape[0]) % axis_size(self._mesh, "dp")
+        if pad:
+            frame = torch.cat([frame, frame.new_zeros((pad,) + frame.shape[1:])])
+        return local_block(frame, self._mesh, ("dp",)).contiguous()
 
     @torch.inference_mode()
-    def _process(self, prev: torch.Tensor, cur: torch.Tensor):
-        rdms = self._processor(prev, cur)
-        flags, _, dets = self._detector(rdms)
-        return rdms, flags, dets
+    def _process(self, prev: torch.Tensor, cur: torch.Tensor, prev_idx: int):
+        if self._mesh is None:
+            rdms = self._processor(prev, cur)
+            flags, _, dets = self._detector(rdms)
+            return rdms, flags, dets
+        # consecutive frames reuse the carried compressed frame; anything
+        # else (a stream restart) compresses the window's first frame anew
+        pc = self._carry.pop(prev_idx, None)
+        if pc is None:
+            pc = self._compress(prev)
+        pc_next, rdms, flags, _ = self._step(pc, cur)
+        self._carry = {prev_idx + 1: pc_next}
+        spec = ("dp", None, None, "sp")
+        rdms, flags = gather_blocks(rdms, self._mesh, spec), gather_blocks(flags, self._mesh, spec)
+        if rdms is None:             # not rank 0
+            return None, None, None
+        rdms, flags = rdms[: self._n_beams], flags[: self._n_beams]
+        return rdms, flags, extract_detections(flags, rdms, self._max_detections)
 
     def __iter__(self) -> Iterator[StreamResult]:
         self._thread = threading.Thread(target=self._produce, daemon=True)
@@ -146,8 +218,8 @@ class StreamingPipeline:
             idx, host = item
             dev = self._stage(host)
             if prev is not None and idx == prev_idx + 1:
-                rdms, flags, dets = self._process(prev, dev)
-                hits = int(flags.sum())
+                rdms, flags, dets = self._process(prev, dev, prev_idx)
+                hits = 0 if flags is None else int(flags.sum())
                 self.counters.add("windows_processed")
                 self.counters.add("cfar_hits", hits)
                 if self._emit == "detections":

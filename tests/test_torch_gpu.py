@@ -666,3 +666,82 @@ def test_detect_thresholds_on_card_equal_single_runs(cuda_device, stage_frames):
             assert sorted(got) == sorted(want)
             for key in want:
                 np.testing.assert_array_equal(got[key], want[key], err_msg=f"T{t} {key}")
+
+
+# --------------------------------------------------------- multi-device layer
+def _wrapped_blocks(rdm, sp, h):
+    """Each range shard's halo-extended block, as ``halo_exchange`` delivers
+    it (the ring wraps at the global edges)."""
+    local = rdm.shape[-1] // sp
+    ext = torch.cat([rdm[..., -h:], rdm, rdm[..., :h]], dim=-1)
+    return [(s * local, ext[..., s * local : s * local + local + 2 * h].contiguous())
+            for s in range(sp)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("shape,segments", [
+    ((4, 332, 3404), G2_PROFILE.cfar_segments),
+    ((3, 96, 344), ((0, 24), (24, 104), (104, 344))),
+], ids=["g2", "cut"])
+def test_b1_extended_blocks_match_whole(rng, cuda_device, sp, shape, segments):
+    """B1 once per halo-extended block (the sharded CFAR's route on the card),
+    centres stitched, equals B1 over the whole RDM and its plain version,
+    bit for bit, at shards that cut the segments; the re-notch band's
+    self-flagging rows included."""
+    from radar_signal_process_tpu_torch.parallel.sharding import extended_block_cfar
+
+    b, nv, nr = shape
+    rdm = (np.abs(rng.standard_normal(shape)) + 0.5).astype(np.float32)
+    rdm[:, nv // 2 - 4 : nv // 2 + 3] = 0.0
+    for _ in range(40 * b):
+        rdm[rng.integers(0, b), rng.integers(12, nv - 12), rng.integers(0, nr)] += 40.0
+    x = torch.from_numpy(rdm).to(cuda_device)
+    cfg, n_clutter = G2_PROFILE.cfar, 6
+    h = cfg.ref_cells + cfg.guard_cells + 2 * cfg.range_extend_cells
+    whole_f, whole_v = kcfar.cascaded_cfar2d(x, cfg, n_clutter, segments)
+    before = kcfar.cascaded_cfar2d.launches
+    parts = [extended_block_cfar(blk, cfg, n_clutter, nr, segments, c0, h)
+             for c0, blk in _wrapped_blocks(x, sp, h)]
+    assert kcfar.cascaded_cfar2d.launches == before + sp
+    got_f = torch.cat([f for f, _ in parts], -1)
+    got_v = torch.cat([v for _, v in parts], -1)
+    assert torch.equal(got_f, whole_f) and torch.equal(got_v, whole_v)
+    plain_f, _ = tcfar.segmented_cfar(torch.from_numpy(rdm), segments, cfg, n_clutter)
+    np.testing.assert_array_equal(got_f.cpu().numpy(), plain_f.numpy())
+    assert bool(whole_f.any())
+
+
+@pytest.mark.gpu
+def test_world1_nccl_sharded_pipeline_matches_unsharded(rng, cuda_device):
+    """A world-1 NCCL group (``initialize_distributed`` without torchrun's
+    environment) and a (1, 1) mesh on the card: the sharded pipeline runs B2
+    and B1 (at sp = 1 on the rank's block as it is) and gives the unsharded
+    chain's RDM and the flags of B1 rerun on it."""
+    import torch.distributed as dist
+
+    from radar_signal_process_tpu_torch.models.detect import detect_rdm
+    from radar_signal_process_tpu_torch.models.mtd_pipeline import mtd_produce
+    from radar_signal_process_tpu_torch.parallel import make_mesh, make_sharded_pipeline
+    from radar_signal_process_tpu_torch.parallel.multihost import initialize_distributed
+
+    prof = dataclasses.replace(G2_PROFILE, prt_per_frame=64)
+    shape = (2, 64, prof.point_prt)
+    echo = _pc(rng, shape, cuda_device)
+    echo[..., 1004] += 40.0 * torch.exp(2j * np.pi * 0.2 * torch.arange(64, device=cuda_device))
+    assert initialize_distributed("cuda") == (0, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(("dp", "sp"), (1, 1), "cuda")
+        before = (krdm.doppler_rdm.launches, kcfar.cascaded_cfar2d.launches)
+        rdm, flags, _ = make_sharded_pipeline(prof, mesh, n_clutter=6, renotch_divisor=20)(echo)
+        torch.cuda.synchronize()
+        assert (krdm.doppler_rdm.launches, kcfar.cascaded_cfar2d.launches) == (
+            before[0] + 1, before[1] + 1)
+    finally:
+        dist.destroy_process_group()
+    want = mtd_produce(echo, prof)
+    peak = float(want.abs().max())
+    assert bool(((rdm - want).abs() <= 2e-5 * peak + RTOL * want.abs()).all())
+    rerun, _ = detect_rdm(rdm, prof, 6)
+    assert torch.equal(flags, rerun) and bool(flags.any())

@@ -502,16 +502,16 @@ def _subcommand_options(parser) -> dict:
 
 
 # options of the JAX CLI the port does not take yet, each with the item that
-# brings it (ROADMAP A5: torch.distributed)
-_NOT_PORTED = {("e2e", "--mesh"): "A5", ("stream", "--mesh"): "A5"}
+# brings it (none since the multi-device layer came)
+_NOT_PORTED = {}
 
 
 @pytest.mark.parametrize("command", ["simulate", "ingest", "mtd", "detect", "e2e", "stream",
                                      "dmx", "analyze", "sweep"])
 def test_port_parser_accepts_the_jax_options(command):
     """Every subcommand of the JAX CLI exists in the port's and takes each of
-    its options with the same default, except the named ones that wait for
-    A5; the port's only extra option is ``--device``, default ``cuda``, on
+    its options with the same default, ``--mesh`` included; the port's only
+    extra option is ``--device``, default ``cuda``, on
     every subcommand that runs a chain (all but ``simulate``)."""
     from radar_signal_process_tpu import cli as jcli
     from radar_signal_process_tpu_torch import cli as tcli
