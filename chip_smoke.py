@@ -87,11 +87,24 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    whole RDM, both timed; and
    ``cli e2e --mesh 1x1`` over the e2e capture, its rows those of ``cli
    e2e`` for the slice, bit for bit.  NCCL takes one GPU per rank, so no
-   group of more than one rank runs on one card.
+   group of more than one rank runs on one card;
+15. block  — the block path (``models/host_parallel.py``), run within phase
+   5 on its capture: ``StreamingPipeline(use_host_parallel=True,
+   block_windows=2)`` (B2 and B1 once per block, PC once per frame), its
+   RDMs within the slice's tolerance of the windowed stream's and whether
+   they are bit-identical, its flags equal to B1's plain version on them,
+   the target in every window, ``emit="detections"`` equal; 13 seeded G2
+   beam frames on the card through ``make_stream_pipeline`` (K = 6, 12
+   windows) against ``FrameProcessor`` + ``Detector``, and the first
+   block's B2 launch (312 RDMs) against B2's plain version on its inputs:
+   device ms per window,
+   launches per window and peak memory of both; ``make_stream_processor``
+   (PC once per frame), ``make_flags`` (one B1 launch) and the native C++
+   cascade on the card's host, bit for bit against B1, with its ms per RDM.
 
 The line before the last is a JSON summary of the kernels (with each one's
-bound: the larger of its bytes over 3.35 TB/s and its operations over the
-peak rate of their type); the last line is
+bound from ``kernels/cost_model.py``: the larger of its bytes over 3.35 TB/s
+and its operations over the peak rate of their type); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
 the JAX package: only ``radar_signal_process_tpu_torch`` (whose ``ingest``
 and ``sim`` modules give the capture reader and writer).
@@ -108,6 +121,8 @@ import time
 
 import numpy as np
 import torch
+
+from radar_signal_process_tpu_torch.kernels import cost_model
 
 SEED = 20250817
 G2_BATCH, G2_PULSES, G2_RANGE = 52, 332, 3404
@@ -130,9 +145,6 @@ SWEEP_REFERENCE = {
 }
 SWEEP_FA_TOL = 1e-4               # the reference's FA rates carry 3 digits
 REPS = 10
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory rate
-FP32_FLOP_PER_S = 67e12           # H100 SXM FP32 peak outside the tensor cores
-TF32_FLOP_PER_S = 495e12          # H100 SXM dense TF32 tensor-core peak
 SMI = {"line": ""}                # nvidia-smi name and power limit of the card
 
 
@@ -183,13 +195,6 @@ def graph_ms(fn, n: int = 20) -> float:
         times.append(a.elapsed_time(b) / n)
     del graph
     return float(np.median(times))
-
-
-def bound_ms(n_bytes: float, n_ops: float, op_rate: float) -> tuple[float, str]:
-    """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the peak rate for their type."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / op_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def c128_error(got: torch.Tensor, exact: torch.Tensor) -> float:
@@ -293,14 +298,12 @@ def phase_rdm(dev) -> tuple[dict, torch.Tensor]:
           f"cufft {ms['cufft']:.3f}")
     if not (ok and ok_fft):
         fail("B2: kernel disagrees with its plain version")
-    # read the pulses and both DFT planes once, write the RDM once; 8 real
-    # flops per complex multiply-add, three TF32 products per real product
-    n_bytes = pc.numel() * 8 + 2 * params.dft_re.numel() * 4 + got.numel() * 4
-    flops = 8.0 * G2_PULSES * G2_PULSES * G2_BATCH * G2_RANGE
-    bound, bound_by = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
-    print(f"B2 bound: {bound:.3f} ms by {bound_by} (3xTF32: {3 * flops:.3e} TF32 flops at "
-          f"495 TFLOP/s; {n_bytes / 1e6:.1f} MB at 3.35 TB/s; the FP32 route's bound "
-          f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms at 67 TFLOP/s) | {SMI['line']}")
+    c = cost_model.rdm_former_cost(G2_BATCH, G2_PULSES, G2_RANGE)
+    bound, bound_by, flops = c["sol_s"] * 1e3, c["bound_by"], c["flops"] / cost_model.TF32_SPLIT
+    print(f"B2 bound (kernels/cost_model.py): {bound:.3f} ms by {bound_by} (3xTF32: "
+          f"{c['flops']:.3e} TF32 flops at 495 TFLOP/s; {c['hbm_bytes'] / 1e6:.1f} MB at "
+          f"3.35 TB/s; the FP32 route's bound "
+          f"{flops / cost_model.H100_FP32_FLOPS * 1e3:.3f} ms at 67 TFLOP/s) | {SMI['line']}")
     del want, fft, pc
     return {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": ms["plain"],
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
@@ -361,12 +364,8 @@ def b1_report(label: str, x: torch.Tensor, cfg, n_clutter: int, kernel, plain) -
     from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
 
     nv, nr = x.shape[-2], x.shape[-1]
-    batch = x.numel() // (nv * nr)
-    nvu = nv - 2 * n_clutter - 1
-    n_bytes = batch * nvu * nr * 4 + 2 * batch * nv * nr
-    # per used cell and axis: r-1 adds, a division, a product, a compare
-    n_ops = 2.0 * batch * nvu * nr * (cfg.ref_cells + 2)
-    bound, bound_by = bound_ms(n_bytes, n_ops, FP32_FLOP_PER_S)
+    c = cost_model.cascaded_cfar_cost(x.numel() // (nv * nr), nv, nr, n_clutter, cfg)
+    n_bytes, bound, bound_by = c["hbm_bytes"], c["sol_s"] * 1e3, c["bound_by"]
     before = cascaded_cfar2d.launches
     kernel()
     per_call = cascaded_cfar2d.launches - before
@@ -588,8 +587,290 @@ def phase_slice(dev) -> dict:
               + f" | sum {sum(ms.values()):.3f} | host .bin parse "
               f"{parse_ms:.1f} ms/frame ({reader_cls.__name__}, wall clock)")
         del first, rdm, flags, pc, want, got
+        block = phase_block(dev, cap, coeff_path, beam, row, col, windows)
         mesh = phase_mesh(dev, cap, coeff_path, beam, row, col, windows, (a, b))
-    return launches, mesh
+    return launches, mesh, block
+
+
+def counted(module, name: str, calls: list):
+    """``module.name`` wrapped to append to ``calls`` on every call, and the
+    function that puts the original back (a PC call is one cuFFT pulse
+    compression: of a frame in the block path, of a doubled window in
+    ``FrameProcessor``)."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, real)
+
+
+def phase_block(dev, cap: str, coeff_path: str, beam: int, row: int, col: int,
+                windows: list) -> dict:
+    """The block path on the card (``models/host_parallel.py``): (a) the
+    slice capture through ``StreamingPipeline(use_host_parallel=True,
+    block_windows=2)``, against the windowed stream's windows; (b) 13 seeded
+    G2 beam frames in device memory through ``make_stream_pipeline`` (K = 6)
+    against ``FrameProcessor`` + ``Detector`` window by window, timed, and
+    B2 at the first block's batch against its plain version; (c)
+    ``make_stream_processor`` over three frame pairs; (d) ``make_flags`` over
+    a G2 stack; (e) the native C++ cascade on the card's host against B1."""
+    from radar_signal_process_tpu_torch.config import G2_PROFILE as prof
+    from radar_signal_process_tpu_torch.ingest import g2_reader_class
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.kernels import rdm as krdm
+    from radar_signal_process_tpu_torch.models import host_parallel as hp
+    from radar_signal_process_tpu_torch.models import mtd_pipeline as tmtd
+    from radar_signal_process_tpu_torch.models.detect import (
+        clutter_cells,
+        make_cascade_detector,
+        make_detector,
+        renotch_mask,
+    )
+    from radar_signal_process_tpu_torch.models.streaming import StreamingPipeline
+    from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
+    from radar_signal_process_tpu_torch.ops.dbf import load_dbf_coeffs
+
+    n_clutter = clutter_cells(prof, G2_PULSES)
+    keep = torch.from_numpy(renotch_mask(prof, G2_PULSES, n_clutter, 20)).to(dev)
+    cfg, segments = prof.cfar, prof.cfar_segments
+    pc_calls: list = []
+    restore = [counted(hp, "segmented_pulse_compression", pc_calls),
+               counted(tmtd, "segmented_pulse_compression", pc_calls)]
+
+    def zero():
+        krdm.doppler_rdm.launches = kcfar.cascaded_cfar2d.launches = 0
+        pc_calls.clear()
+
+    def read():
+        return {"doppler_rdm": krdm.doppler_rdm.launches,
+                "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches, "pc": len(pc_calls)}
+
+    def within(got, want):
+        peak = float(want.abs().max())
+        return bool(((got - want).abs() <= 2e-5 * peak + RDM_RTOL * want.abs()).all())
+
+    def plain_diff(rdms, flags):
+        return int((segmented_cfar(rdms * keep[:, None], segments, cfg, n_clutter)[0]
+                    != flags).sum())
+
+    try:
+        # (a) the slice capture, blocks of 2 and 1 windows
+        coeffs = load_dbf_coeffs(coeff_path, prof.n_channels)
+        reader_cls = g2_reader_class()
+
+        def drive(emit):
+            pipe = StreamingPipeline(reader_cls(cap, prof), prof, win_size=4, max_frames=4,
+                                     dbf_coeffs=coeffs, emit=emit, device=dev,
+                                     use_host_parallel=True, block_windows=2)
+            zero()
+            t0 = time.perf_counter()
+            out = list(pipe)
+            torch.cuda.synchronize()
+            return out, read(), time.perf_counter() - t0
+
+        full, launches_a, wall = drive("full")
+        if [r.frame_idx for r in full] != [0, 1, 2]:
+            fail(f"block: windows {[r.frame_idx for r in full]} (want 0, 1, 2)")
+        if launches_a != {"doppler_rdm": 2, "cascaded_cfar2d": 2, "pc": 4}:
+            fail(f"block: launches {launches_a} (want B2 2, B1 2, PC 4)")
+        worst, bit, n_diff, found = 0.0, True, 0, []
+        for r, want in zip(full, windows):
+            if not (bool(torch.isfinite(r.rdms).all()) and within(r.rdms, want)):
+                fail(f"block: window {r.frame_idx} RDMs off the windowed stream's")
+            worst = max(worst, float((r.rdms - want).abs().max()))
+            bit = bit and torch.equal(r.rdms, want)
+            n_diff += plain_diff(r.rdms, r.flags)
+            d = r.detections
+            found.append((d.valid[beam] & ((d.v_idx[beam] - row).abs() <= 1)
+                          & ((d.r_idx[beam] - col).abs() <= 1)).any(dim=-1).cpu().tolist())
+        print(f"block (a): StreamingPipeline(use_host_parallel=True, block_windows=2) over the "
+              f"slice capture ({reader_cls.__name__}, seeded DBF): windows 0, 1, 2 in "
+              f"{wall:.2f} s; "
+              f"launches {launches_a}; RDMs vs the windowed stream max_abs_err {worst:.3e} "
+              f"(2e-5*peak + {RDM_RTOL}*|want|) -> ok, bit-identical: {bit}; flags vs the "
+              f"plain CFAR on the block's RDMs: {n_diff} differ -> "
+              f"{'bit-identical' if n_diff == 0 else 'MISMATCH'}; target in beam {beam}: {found}")
+        if n_diff or not all(all(w) for w in found):
+            fail("block: flags differ from the plain CFAR or the target is missing")
+        det, launches_d, _ = drive("detections")
+        same = len(det) == len(full) and all(
+            g.rdms is None and g.flags is None and g.cfar_hits == f.cfar_hits
+            and all(torch.equal(x, y) for x, y in zip(g.detections, f.detections))
+            for g, f in zip(det, full))
+        print(f"block (a): emit='detections': launches {launches_d}; detections and hits equal "
+              f"to emit='full' -> {'ok' if same else 'MISMATCH'}")
+        if not same:
+            fail("block: emit='detections' differs from emit='full'")
+        del full, det
+
+        # (b) 13 G2 beam frames on the card, blocks of K = 6
+        k, n_frames = 6, 13
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 7)
+        frames = [torch.randn((prof.n_beams, G2_PULSES, G2_RANGE), dtype=torch.complex64,
+                              device=dev, generator=gen) for _ in range(n_frames)]
+        n_win = n_frames - 1
+        run = hp.make_stream_pipeline(prof, 4, n_clutter, max_detections=16, device=dev)
+        processor = tmtd.make_frame_processor(prof, 4, device=dev)
+        detector = make_detector(prof, n_clutter=n_clutter, max_detections=16, device=dev)
+
+        def block_form(sink):
+            carry = None
+            for b0 in range(0, n_win, k):
+                carry = run(frames[b0 : b0 + k + 1],
+                            lambda w, *r, b0=b0: sink(b0 + w, *r), carry=carry)
+
+        def windowed_form(sink):
+            for w in range(n_win):
+                rdms = processor(frames[w], frames[w + 1])
+                flags, _, dets = detector(rdms)
+                sink(w, rdms, flags, dets, int(flags.sum()))
+
+        got_b, got_w = {}, {}
+        forms = {"block": (block_form, got_b), "windowed": (windowed_form, got_w)}
+        counts = {}
+        # the inputs of the first block's B2 launch (K windows at once), to
+        # hold B2 against its plain version at the block's batch
+        b2_args: list = []
+        real_b2 = tmtd.doppler_rdm
+
+        def capture_b2(*args):
+            if not b2_args:
+                b2_args.extend(args)
+            return real_b2(*args)
+
+        with torch.inference_mode():
+            for name, (form, got) in forms.items():
+                zero()
+                tmtd.doppler_rdm = capture_b2 if name == "block" else real_b2
+                try:
+                    form(lambda w, *r, got=got: got.__setitem__(w, r[:3]))
+                finally:
+                    tmtd.doppler_rdm = real_b2
+                torch.cuda.synchronize()
+                counts[name] = read()
+            want_b2 = krdm.doppler_rdm_plain(*b2_args)
+            got_b2 = torch.stack([got_b[w][0] for w in range(k)])
+            b2_batch = int(np.prod(want_b2.shape[:-2]))
+            if want_b2.shape != got_b2.shape or not within(got_b2, want_b2):
+                fail(f"block (b): B2 at batch {b2_batch} off its plain version")
+            b2_err = float((got_b2 - want_b2).abs().max())
+            del b2_args[:], want_b2, got_b2
+            worst, n_diff, bit = 0.0, 0, True
+            for w in range(n_win):
+                rb, fb, _ = got_b[w]
+                rw = got_w[w][0]
+                if not within(rb, rw):
+                    fail(f"block (b): window {w} RDMs off FrameProcessor's")
+                worst = max(worst, float((rb - rw).abs().max()))
+                bit = bit and torch.equal(rb, rw)
+                n_diff += plain_diff(rb, fb)
+            if n_diff:
+                fail(f"block (b): {n_diff} flags differ from the plain CFAR on the block's RDMs")
+            del got_b, got_w
+            # each turn drops its results as they come, so the peak is the
+            # form's working set over the frames
+            times, peaks = {"block": [], "windowed": []}, {"block": [], "windowed": []}
+            for name in ("block", "windowed", "windowed", "block", "block", "windowed"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                forms[name][0](lambda *r: None)
+                b.record()
+                b.synchronize()
+                times[name].append(a.elapsed_time(b) / n_win)
+                peaks[name].append((torch.cuda.max_memory_allocated(dev) - base) / 1e6)
+        ms = {name: float(np.median(v)) for name, v in times.items()}
+        peaks = {name: float(np.median(v)) for name, v in peaks.items()}
+        per_win = {name: {key: c[key] / n_win for key in c} for name, c in counts.items()}
+        print(f"block (b): {n_frames} G2 beam frames ({prof.n_beams} x {G2_PULSES} x {G2_RANGE}, "
+              f"{sum(f.numel() * 8 for f in frames) / 1e9:.2f} GB on the card), {n_win} "
+              f"windows: B2 at the first block's batch ({b2_batch} RDMs) vs its plain version "
+              f"on the same inputs max_abs_err {b2_err:.3e} (2e-5*peak + {RDM_RTOL}*|want|) "
+              f"-> ok; RDMs block vs FrameProcessor max_abs_err {worst:.3e} -> ok, "
+              f"bit-identical: {bit}; flags vs the plain CFAR on the block's RDMs: 0 differ | "
+              f"device ms per window (CUDA events, median of 3, in turns): block (K = {k}) "
+              f"{ms['block']:.3f}, windowed {ms['windowed']:.3f} | launches per window: "
+              f"block {per_win['block']}, windowed {per_win['windowed']} | peak memory above "
+              f"the frames (max_memory_allocated): block {peaks['block']:.0f} MB, windowed "
+              f"{peaks['windowed']:.0f} MB | {SMI['line']}")
+
+        # (c) make_stream_processor over three consecutive frame pairs
+        proc = hp.make_stream_processor(prof, 4, device=dev)
+        zero()
+        with torch.inference_mode():
+            outs = [proc(frames[w], frames[w + 1], frame_idx=w) for w in range(3)]
+            torch.cuda.synchronize()
+            launches_c = read()
+            ok_c = all(within(o, processor(frames[w], frames[w + 1]))
+                       for w, o in enumerate(outs))
+        print(f"block (c): make_stream_processor over 3 consecutive G2 frame pairs: launches "
+              f"{launches_c} (PC once per frame); RDMs vs FrameProcessor -> "
+              f"{'ok' if ok_c else 'FAIL'}")
+        if launches_c["pc"] != 4 or launches_c["doppler_rdm"] != 3 or not ok_c:
+            fail("block (c): make_stream_processor launches or RDMs wrong")
+
+        # (d) make_flags over a G2 stack: one B1 launch, the detector's flags
+        with torch.inference_mode():
+            zero()
+            flags, _ = hp.make_flags(prof, n_clutter, device=dev)(outs[-1])
+            torch.cuda.synchronize()
+            launches_d_flags = read()
+            want_flags = detector(outs[-1])[0]
+            n_diff_d = int((flags != want_flags).sum())
+        print(f"block (d): make_flags over a G2 stack {tuple(outs[-1].shape)}: launches "
+              f"{launches_d_flags}; flags vs the detector's: {n_diff_d} differ")
+        if launches_d_flags["cascaded_cfar2d"] != 1 or n_diff_d:
+            fail("block (d): make_flags is not one B1 launch or its flags differ")
+
+        # (e) the native cascade on the card's host, one transposed window
+        from radar_signal_process_tpu_torch.kernels import native_cfar
+
+        stale = native_cfar.lib_path()
+        if os.path.exists(stale):      # always build from this checkout's source
+            os.unlink(stale)
+        t0 = time.perf_counter()
+        if not native_cfar.native_cfar_available():
+            fail(f"block (e): native CFAR unavailable: {native_cfar.build_error()}")
+        build_s = time.perf_counter() - t0
+        one = native_cfar.make_native_cascade(
+            n_clutter, cfg, segments=segments,
+            notch_mask=native_cfar.notch_mask_shifted(G2_PULSES, 20))
+        rdm_t = outs[-1].reshape(-1, G2_PULSES, G2_RANGE).mT.contiguous().cpu()
+        b1 = want_flags.reshape(-1, G2_PULSES, G2_RANGE).cpu()
+        t0 = time.perf_counter()
+        native = [one(r)[0] for r in rdm_t]
+        native_ms = (time.perf_counter() - t0) * 1e3 / len(native)
+        n_diff_e = int((torch.stack(native).mT != b1).sum())
+        # as the CPU block path runs it: the RDMs on a pool of host threads
+        pooled = make_cascade_detector(prof, n_clutter, transposed=True, device="cpu")
+        t0 = time.perf_counter()
+        pooled_flags = pooled(rdm_t)[0]
+        pool_ms = (time.perf_counter() - t0) * 1e3 / len(native)
+        n_diff_e += int((pooled_flags.mT != b1).sum())
+        print(f"block (e): native C++ cascade (g++ build {build_s:.1f} s) on one transposed G2 "
+              f"window {tuple(rdm_t.shape)}: {native_ms:.2f} ms per RDM on the host on one "
+              f"thread, {pool_ms:.2f} through make_cascade_detector's pool "
+              f"(os.cpu_count() {os.cpu_count()}); flags of both vs B1: {n_diff_e} differ -> "
+              f"{'bit-identical' if n_diff_e == 0 else 'MISMATCH'}")
+        if n_diff_e:
+            fail("block (e): the native cascade differs from B1")
+    finally:
+        for r in restore:
+            r()
+    return {"launches": {"stream block": launches_a, "stream block detections": launches_d,
+                         "make_stream_pipeline": counts["block"],
+                         "make_stream_processor": launches_c, "make_flags": launches_d_flags},
+            "window_ms": ms, "launches_per_window": per_win, "peak_mb": peaks,
+            "b2_block_batch": b2_batch, "b2_block_max_abs_err": b2_err,
+            "native_ms_per_rdm": native_ms, "native_pool_ms_per_rdm": pool_ms,
+            "host_cpus": os.cpu_count()}
 
 
 def phase_mesh(dev, cap: str, coeff_path: str, beam: int, row: int, col: int,
@@ -815,18 +1096,18 @@ def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
               f"kernel {ms[f'{name}_kernel']:.3f} plain {ms[f'{name}_plain']:.3f}")
     kernel_ms = ms["short_kernel"] + ms["long_kernel"]
     plain_ms = ms["short_plain"] + ms["long_plain"]
-    # per call: read the segment, both PC planes and both DFT planes once,
-    # write the RDM once; X.M then W.P, three TF32 products per real product
-    n_bytes = flops = 0.0
-    for (seg, m_re, _), out in zip(segments.values(), outs):
-        n_in, n_out = m_re.shape
-        n_bytes += (seg.numel() * 8 + m_re.numel() * 8 + chain.dft_re.numel() * 8
-                    + out.numel() * 4)
-        flops += 8.0 * G0_BATCH * prof.prt_per_frame * n_out * (n_in + chain.dft_re.shape[0])
-    bound, bound_by = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
-    print(f"B3 bound per frame (both segments): {bound:.3f} ms by {bound_by} (3xTF32: "
-          f"{3 * flops:.3e} TF32 flops at 495 TFLOP/s; {n_bytes / 1e6:.1f} MB; the FP32 "
-          f"route's bound {flops / FP32_FLOP_PER_S * 1e3:.3f} ms) | {SMI['line']}")
+    costs = [cost_model.fused_pc_rdm_cost(G0_BATCH, prof.prt_per_frame, *m_re.shape,
+                                          chain.dft_re.shape[0])
+             for _, m_re, _ in segments.values()]
+    n_bytes = sum(c["hbm_bytes"] for c in costs)
+    tf32_flops = sum(c["flops"] for c in costs)
+    c = cost_model.roofline(n_bytes, tf32_flops, cost_model.H100_TF32_FLOPS)
+    bound, bound_by = c["sol_s"] * 1e3, c["bound_by"]
+    flops = tf32_flops / cost_model.TF32_SPLIT
+    print(f"B3 bound per frame (both segments, kernels/cost_model.py): {bound:.3f} ms by "
+          f"{bound_by} (3xTF32: {tf32_flops:.3e} TF32 flops at 495 TFLOP/s; "
+          f"{n_bytes / 1e6:.1f} MB; the FP32 route's bound "
+          f"{flops / cost_model.H100_FP32_FLOPS * 1e3:.3f} ms) | {SMI['line']}")
     print(f"B3 per frame (both segments): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"cuFFT form {ms['cufft_both']:.3f} ms (median of {REPS}, CUDA events)")
     if not ok:
@@ -1076,10 +1357,8 @@ def b2_report(label: str, pc: torch.Tensor, w_re, w_im, notch) -> dict:
     ms = cuda_ms({"kernel": lambda: doppler_rdm(pc, w_re, w_im, notch),
                   "plain": lambda: doppler_rdm_plain(pc, w_re, w_im, notch)})
     n_fft, n = w_re.shape
-    batch = pc.numel() // (n * pc.shape[-1])
-    n_bytes = pc.numel() * 8 + 2 * w_re.numel() * 4 + got.numel() * 4
-    flops = 8.0 * n_fft * n * batch * pc.shape[-1]
-    bound, bound_by = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
+    c = cost_model.rdm_former_cost(pc.numel() // (n * pc.shape[-1]), n, pc.shape[-1], n_fft)
+    bound, bound_by = c["sol_s"] * 1e3, c["bound_by"]
     print(f"B2 doppler_rdm [{label}] {tuple(pc.shape)} -> {tuple(got.shape)}: max_abs_err "
           f"{max_abs:.3e} max_rel_err {max_rel:.3e} (peak {peak:.3e}) vs plain (2e-5*peak + "
           f"{RDM_RTOL}*|want|) -> {'ok' if ok else 'FAIL'}; vs complex128 product: max error "
@@ -1583,7 +1862,7 @@ def main() -> int:
     rdm_stats, rdm_out = phase_rdm(dev)
     cfar_stats = phase_cfar(dev, rdm_out)
     del rdm_out
-    launches, mesh = phase_slice(dev)
+    launches, mesh, block = phase_slice(dev)
     from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
 
     chain = G0Chain(device=dev)
@@ -1603,6 +1882,8 @@ def main() -> int:
                    "e2e": e2e["launches"]["cascaded_cfar2d"],
                    "dmx outputs": g0["outputs"]["launches"]["cascaded_cfar2d"],
                    **{k: v["cascaded_cfar2d"] for k, v in stages["launches"].items()
+                      if v["cascaded_cfar2d"]},
+                   **{k: v["cascaded_cfar2d"] for k, v in block["launches"].items()
                       if v["cascaded_cfar2d"]}}
     b2_launches = {"stream": launches["doppler_rdm"],
                    "stream --mesh": mesh["launches"]["doppler_rdm"],
@@ -1611,14 +1892,19 @@ def main() -> int:
                    "sweep": sweep["launches"]["doppler_rdm"],
                    "e2e": e2e["launches"]["doppler_rdm"],
                    **{k: v["doppler_rdm"] for k, v in stages["launches"].items()
+                      if v["doppler_rdm"]},
+                   **{k: v["doppler_rdm"] for k, v in block["launches"].items()
                       if v["doppler_rdm"]}}
     kernels = [
         {"name": "doppler_rdm", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/rdm.cu",
          "replaces": "radar_signal_process_tpu/kernels/rdm_pallas.py:114",
          "launches": sum(b2_launches.values()), "launches_by_path": b2_launches,
-         **rdm_stats, "max_abs_err": max(rdm_stats["max_abs_err"], g1["b2"]["max_abs_err"]),
-         "g1": g1["b2"], "sweep": sweep["b2"], "stages_max_abs_err": stages["b2_max_abs_err"]},
+         **rdm_stats, "max_abs_err": max(rdm_stats["max_abs_err"], g1["b2"]["max_abs_err"],
+                                         block["b2_block_max_abs_err"]),
+         "g1": g1["b2"], "sweep": sweep["b2"], "stages_max_abs_err": stages["b2_max_abs_err"],
+         "block": {k: block[k] for k in ("window_ms", "launches_per_window", "peak_mb",
+                                         "b2_block_batch", "b2_block_max_abs_err")}},
         {"name": "cascaded_cfar2d", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/cfar.cu",
          "replaces": "radar_signal_process_tpu/kernels/cfar_pallas.py:136",
@@ -1627,7 +1913,10 @@ def main() -> int:
                                           sweep["b1"]["max_abs_err"]),
          "g0": cfar_g0_stats, "sweep": sweep["b1"],
          "stages_mismatched_flags": stages["b1_mismatched_flags"],
-         "extended_blocks": mesh["b1_blocks"], "mesh_window_ms": mesh["window_ms"]},
+         "extended_blocks": mesh["b1_blocks"], "mesh_window_ms": mesh["window_ms"],
+         "native_cascade_ms_per_rdm": block["native_ms_per_rdm"],
+         "native_cascade_pool_ms_per_rdm": block["native_pool_ms_per_rdm"],
+         "host_cpus": block["host_cpus"]},
         {"name": "fused_pc_rdm", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/pc_rdm.cu",
          "replaces": "radar_signal_process_tpu/kernels/pc_rdm_pallas.py:253",

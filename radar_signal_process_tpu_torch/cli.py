@@ -14,8 +14,8 @@ subcommand of ``radar_signal_process_tpu.cli`` prints; the chains run on
   frame-keyed and skips frames already written unless ``--force``.
   ``ingest`` parses a capture (and beamforms it with ``--dbf-coeffs``),
   ``mtd`` forms the windowed RDMs of each frame pair
-  (:class:`models.mtd_pipeline.FrameProcessor`, B2), ``detect`` runs the
-  detector (B1) once per frame, or once per threshold per frame with
+  (``models.host_parallel.make_stream_processor``, B2), ``detect`` runs
+  the re-notch and B1 once per frame, or once per threshold per frame with
   ``--thresholds``, ``analyze`` renders an RDM dashboard and animations;
 * ``e2e`` runs the in-memory chain over a G2 capture: frame pairs through
   the frame processor (B2) and the detector (B1), detections of every
@@ -36,9 +36,15 @@ torch.distributed.run --nproc_per_node N -m radar_signal_process_tpu_torch.cli
 run ``--mesh 1x1`` in a plain process.  ``dp * sp`` must be the number of
 ranks; only rank 0 prints, and every rank leaves on exit the process group
 the command formed (a group its caller formed stays up).
-``e2e --beam`` and ``stream --block-windows`` are accepted and, as on the
-JAX package's device path, unused; ``e2e --win-slice`` selects the slice
-that ``--mesh`` runs.
+``e2e --beam`` is accepted and, as on the JAX package's device path,
+unused; ``e2e --win-slice`` selects the slice that ``--mesh`` runs.
+
+``mtd`` and ``detect`` take the JAX CLI's CPU routes on both devices
+(``models.host_parallel``): ``mtd`` compresses each frame once and reuses it
+for both windows it feeds (``make_stream_processor``), ``detect`` runs
+``make_flags`` and then the extraction.  ``stream --device cpu`` runs blocks
+of ``--block-windows`` windows; on ``--device cuda`` it keeps the windowed
+path, as the JAX package does off the CPU.
 """
 
 from __future__ import annotations
@@ -326,18 +332,21 @@ def cmd_ingest(args, on_result: Optional[Callable] = None) -> int:
 # ------------------------------------------------------------------ stage 2
 def cmd_mtd(args, on_result: Optional[Callable] = None) -> int:
     """Stage 2 (``main_produce_dataset_win_xzr_v2.m``): each frame pair of a
-    stage-1 directory (npz or mat) -> the windowed RDM stack, one
-    :class:`FrameProcessor` call (B2) on ``--device``.  ``on_result`` (if
+    stage-1 directory (npz or mat) -> the windowed RDM stack, one B2 launch
+    on ``--device`` (``make_stream_processor``: each frame compressed once
+    and reused for both pairs it feeds, as the JAX CLI's CPU route).
+    ``on_result`` (if
     given) sees ``(frame_idx, {"rdm": tensor}, seconds)`` for every frame
     written, ``seconds`` the wall time of its load, device (upload, mtd,
     download) and save stages."""
     from radar_signal_process_tpu_torch.device import resolve_device
-    from radar_signal_process_tpu_torch.models.mtd_pipeline import make_frame_processor
+    from radar_signal_process_tpu_torch.models.host_parallel import make_stream_processor
     from radar_signal_process_tpu_torch.utils import matbus
 
     device = resolve_device(args.device)
     stc_curve, profile = _istc_profile(args, PROFILES[args.profile])
-    process = make_frame_processor(
+    # each frame compressed once over consecutive frame pairs
+    process = make_stream_processor(
         profile, win_size=args.win_size, stc_curve_db=stc_curve,
         pulses=_parse_match_waveforms(args, profile), device=device,
     )
@@ -357,7 +366,7 @@ def cmd_mtd(args, on_result: Optional[Callable] = None) -> int:
                 break
             with timers.stage("mtd"):
                 rdms = process(_frame_to_device(now["iq"], device),
-                               _frame_to_device(nxt["iq"], device))
+                               _frame_to_device(nxt["iq"], device), frame_idx=frame_idx)
                 host = rdms.cpu().numpy()
             with timers.stage("save"):
                 if args.format == "mat":
@@ -483,14 +492,17 @@ def _detect_sweep(args, profile, device, on_result: Optional[Callable] = None) -
 
 def cmd_detect(args, on_result: Optional[Callable] = None) -> int:
     """Stage 3 (``main_cfar.m``): each frame's RDM stack (npz or mat) ->
-    the re-notch, B1 and the detection list on ``--device``, one detector
-    call per frame (or one B1 launch per threshold with ``--thresholds``).
+    the re-notch, B1 and the detection list on ``--device``: ``make_flags``
+    (one B1 launch per frame, or one per threshold with ``--thresholds``)
+    and then the extraction, as the JAX CLI's CPU route.
     ``on_result`` (if given) sees ``(frame_idx, arrays, seconds)`` for
     every frame written: ``arrays`` the frame's host arrays under the
     manifest's names (sweep: ``{threshold: arrays}``), ``seconds`` the wall
     time of its load, device (upload, CFAR, download) and save stages."""
     from radar_signal_process_tpu_torch.device import resolve_device
-    from radar_signal_process_tpu_torch.models.detect import clutter_cells, make_detector
+    from radar_signal_process_tpu_torch.models.detect import clutter_cells
+    from radar_signal_process_tpu_torch.models.host_parallel import make_flags
+    from radar_signal_process_tpu_torch.ops.measure import extract_detections
     from radar_signal_process_tpu_torch.ops.spectrum import detection_spectral_widths
 
     profile = PROFILES[args.profile]
@@ -503,7 +515,7 @@ def cmd_detect(args, on_result: Optional[Callable] = None) -> int:
             "per-detection spectral widths are not computed or persisted "
             "(use the npz format)"
         )
-    detector = None
+    flags_fn = None
     timers = StageTimers(device)
     done = 0
     with torch.inference_mode():
@@ -516,16 +528,16 @@ def cmd_detect(args, on_result: Optional[Callable] = None) -> int:
                     rdm_arr, _, _ = _load_rdms(args.input, frame_idx, profile)
             except FileNotFoundError:
                 break
-            if detector is None:
-                detector = make_detector(
-                    profile, n_clutter=clutter_cells(profile, rdm_arr.shape[-2], args.clutter_v),
-                    max_detections=args.max_detections,
+            if flags_fn is None:
+                flags_fn = make_flags(
+                    profile, clutter_cells(profile, rdm_arr.shape[-2], args.clutter_v),
                     cfg=dataclasses.replace(profile.cfar, threshold=args.threshold),
                     device=device,
                 )
             with timers.stage("cfar"):
                 rdms = _rdms_to_device(rdm_arr, device)
-                flags, vflags, dets = detector(rdms)
+                flags, vflags = flags_fn(rdms)
+                dets = extract_detections(flags, rdms, args.max_detections)
                 det_width = None
                 if args.spectral_width_db is not None and args.format != "mat":
                     det_width = detection_spectral_widths(
@@ -832,6 +844,7 @@ def cmd_stream(args, on_result: Optional[Callable] = None) -> int:
             stc_curve_db=stc_curve,
             pulses=_parse_match_waveforms(args, profile),
             mesh=mesh,
+            block_windows=args.block_windows,
         )
         root = _is_root()
         frames_out = []
@@ -1145,7 +1158,7 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--dbf-coeffs", default=None)
     _istc_arg(st)
     st.add_argument("--block-windows", type=int, default=6,
-                    help="unused: windows per block of the JAX package's CPU path")
+                    help="windows per block of the CPU block path (models.host_parallel)")
     st.add_argument("--emit", default="full",
                     choices=("detections", "flags", "full"),
                     help="per-window emission: 'detections' drops the RDM "

@@ -1,17 +1,24 @@
 """Detection stage: RDM -> re-notch -> cascaded CFAR per segment -> detections.
 
-Port of ``radar_signal_process_tpu/models/detect.py`` (``detect_rdm`` and
-``make_detector``), after ``CFAR_WangCai/main_cfar.m:85-96``: the RDM is
-re-notched with the wide divisor-20 clutter notch (on an unshifted spectrum,
-the clutter rows at both ends), the cascaded CFAR (B1) runs per pulse
-segment, and the strongest hits of the *un-renotched* RDM form the detection
-list.  ``n_clutter`` follows ``MTD_0v_num = floor(MTD_V / deltaV)``
-(``main_cfar.m:56-58``).
+Port of ``radar_signal_process_tpu/models/detect.py``, after
+``CFAR_WangCai/main_cfar.m:85-96``: the RDM is re-notched with the wide
+divisor-20 clutter notch (on an unshifted spectrum, the clutter rows at both
+ends), the cascaded CFAR (B1) runs per pulse segment, and the strongest hits
+of the *un-renotched* RDM form the detection list.  ``n_clutter`` follows
+``MTD_0v_num = floor(MTD_V / deltaV)`` (``main_cfar.m:56-58``).
+
+:func:`make_split_detector` and :func:`make_cascade_detector` are the flag
+stage alone, in either layout: B1 on a CUDA tensor, and on a CPU tensor the
+split form of ``ops.cfar`` (the JAX package's CPU detector) or, in the
+transposed layout, the native C++ cascade (``kernels.native_cfar``).
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -21,6 +28,7 @@ from torch import nn
 from radar_signal_process_tpu_torch.config import CFARConfig, RadarProfile
 from radar_signal_process_tpu_torch.device import REAL, resolve_device
 from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
+from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar_flags, segmented_cfar_select
 from radar_signal_process_tpu_torch.ops.measure import DetectionList, extract_detections
 from radar_signal_process_tpu_torch.ops.mtd import notch_mask, notch_mask_unshifted
 
@@ -49,14 +57,120 @@ def renotch_mask(
     return notch_mask_unshifted(n_v, n_clutter)
 
 
+def _segments(profile: RadarProfile, n_range: int) -> Tuple[Tuple[int, int], ...]:
+    """The profile's CFAR segments clipped to an RDM ``n_range`` wide, as
+    slicing clips them, empty ones dropped (one segment by default)."""
+    return tuple((a, min(b, n_range)) for a, b in profile.cfar_segments or ((0, n_range),)
+                 if a < min(b, n_range))
+
+
 def _cascade(
     rdm: torch.Tensor, keep: Optional[torch.Tensor], profile: RadarProfile,
     n_clutter: int, cfg: CFARConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     if keep is not None:
         rdm = rdm * keep[:, None]
-    segments = profile.cfar_segments or ((0, rdm.shape[-1]),)
-    return cascaded_cfar2d(rdm, cfg, n_clutter, segments)
+    return cascaded_cfar2d(rdm, cfg, n_clutter, _segments(profile, rdm.shape[-1]))
+
+
+def make_split_detector(
+    profile: RadarProfile,
+    n_clutter: int,
+    cfg: CFARConfig | None = None,
+    renotch_divisor: int | None = RENOTCH_DIVISOR,
+    transposed: bool = False,
+    device: str | torch.device = "cuda",
+):
+    """``detect(rdm) -> (flags, vflags)``: the re-notch and the cascaded CFAR
+    over the profile's segments, the JAX ``make_split_detector``'s contract.
+
+    ``transposed=True`` takes (..., n_range, n_velocity) RDMs and returns
+    flags in that layout.  On a CUDA tensor the detector is
+    :func:`detect_rdm`'s re-notch and one B1 launch, transposing in and out
+    when ``transposed`` (free when the RDM is a transposed view of a
+    standard-layout tensor); on a CPU tensor it runs
+    the split form, ``segmented_cfar_flags`` then ``segmented_cfar_select``.
+    The re-notch masks live on ``device``.
+    """
+    device = resolve_device(device)
+    cfg = cfg or profile.cfar
+    v_dim, r_dim = (-1, -2) if transposed else (-2, -1)
+    masks: dict = {}
+
+    def keep(n_v: int) -> Optional[torch.Tensor]:
+        if n_v not in masks:
+            m = renotch_mask(profile, n_v, n_clutter, renotch_divisor)
+            masks[n_v] = None if m is None else torch.as_tensor(m, dtype=REAL, device=device)
+        return masks[n_v]
+
+    def detect(rdm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        k = keep(rdm.shape[v_dim])
+        if rdm.device.type == "cuda":
+            x = rdm.mT if transposed else rdm
+            flags, vflags = _cascade(x.contiguous(), k, profile, n_clutter, cfg)
+            return (flags.mT, vflags.mT) if transposed else (flags, vflags)
+        segments = _segments(profile, rdm.shape[r_dim])
+        if k is not None:
+            rdm = rdm * (k if transposed else k[:, None])
+        vflag, rflag = segmented_cfar_flags(rdm, segments, cfg, n_clutter, transposed=transposed)
+        return segmented_cfar_select(rdm, vflag, rflag, segments, cfg, n_clutter,
+                                     transposed=transposed)
+
+    return detect
+
+
+def make_cascade_detector(
+    profile: RadarProfile,
+    n_clutter: int,
+    cfg: CFARConfig | None = None,
+    renotch_divisor: int | None = RENOTCH_DIVISOR,
+    transposed: bool = False,
+    prefer_native: bool | None = None,
+    device: str | torch.device = "cuda",
+):
+    """:func:`make_split_detector`, or on the host the native C++ cascade.
+
+    The native cascade (``kernels/native/cfar.cpp``) gives the split form's
+    flags bit for bit, and on an 8-CPU host it takes 2.75 ms per G2 RDM
+    against the split form's 40.9 (``tools/bench_cpu_cfar.py``, ``PERF.md``
+    §6).  So on a CPU ``device`` in the transposed layout it is the default:
+    ``prefer_native`` None or True takes it, False the split form.  It runs
+    the RDMs of the leading axes on a pool of ``os.cpu_count()`` threads
+    (ctypes releases the GIL).  Where it cannot be built, the build error is
+    logged at WARNING and the split form runs.  ``prefer_native=True`` on a
+    CUDA ``device`` raises: the card runs B1.
+    """
+    device = resolve_device(device)
+    if prefer_native and device.type != "cpu":
+        raise ValueError(f"prefer_native=True: the native cascade runs on the host, not {device}")
+    cfg = cfg or profile.cfar
+    if prefer_native is not False and transposed and device.type == "cpu":
+        from radar_signal_process_tpu_torch.kernels import native_cfar
+
+        if native_cfar.native_cfar_available():
+            mask = None
+            if renotch_divisor:
+                # Doppler extent: the padded FFT length when the profile
+                # zero-pads (G0 class), else the CPI length
+                n_v = profile.mtd.fft_length or profile.prt_per_frame
+                mask = (native_cfar.notch_mask_shifted(n_v, renotch_divisor)
+                        if profile.mtd.fftshift
+                        else native_cfar.notch_mask_unshifted(n_v, n_clutter))
+
+            def detect(rdm_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                one = native_cfar.make_native_cascade(
+                    n_clutter, cfg, segments=_segments(profile, rdm_t.shape[-2]),
+                    notch_mask=mask)
+                with ThreadPoolExecutor(os.cpu_count()) as pool:
+                    outs = list(pool.map(one, rdm_t.reshape((-1,) + rdm_t.shape[-2:])))
+                return (torch.stack([f for f, _ in outs]).reshape(rdm_t.shape),
+                        torch.stack([v for _, v in outs]).reshape(rdm_t.shape))
+
+            return detect
+        logging.getLogger("radar_tpu_torch.detect").warning(
+            "native CFAR unavailable (%s); using the split form", native_cfar.build_error())
+    return make_split_detector(profile, n_clutter, cfg=cfg, renotch_divisor=renotch_divisor,
+                               transposed=transposed, device=device)
 
 
 def detect_rdm(

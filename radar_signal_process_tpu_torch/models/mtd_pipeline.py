@@ -151,3 +151,13 @@ def make_frame_processor(
         profile, pulses=pulses, stc_curve_db=stc_curve_db, device=resolve_device(device)
     )
     return FrameProcessor(profile, params, win_size)
+
+
+def process_frame_pair(
+    frames: torch.Tensor, profile: RadarProfile, win_size: int = 4
+) -> torch.Tensor:
+    """``frames`` (2, n_beams, n_prt, point_prt) complex64 -> the RDM stack of
+    the pair on ``frames``' device, with the synthesized reference pulses."""
+    params = cpi_params(profile, frames.shape[-2], frames.device)
+    return mtd_window_produce(torch.cat([frames[0], frames[1]], dim=-2), profile, params,
+                              win_size)

@@ -1,15 +1,22 @@
 """Streaming execution: overlapped host ingest + device compute.
 
-Port of the device branch of ``radar_signal_process_tpu/models/streaming.py``
-(the windowed consumer).  A background thread parses ``.bin`` frames and
-stages each into pinned host memory while the device processes the previous
-window.  The consumer copies the frame to the device on the current
-stream, beamforms it there when DBF coefficients are given, pairs it with the
-previous frame into a doubled-CPI window
-(``main_produce_dataset_win_xzr_v2.m:75-103``) and runs the frame processor
-and the detector over every (beam, slice) RDM (``main_cfar.m:85-96``).
-All device work is issued on one stream, so no cross-stream events are
-needed; the pinned copy makes the host-to-device transfer asynchronous.
+Port of ``radar_signal_process_tpu/models/streaming.py``.  A background
+thread parses ``.bin`` frames and stages each into pinned host memory while
+the device processes earlier frames.  The consumer copies a frame to the
+device on the current stream and beamforms it there when DBF coefficients
+are given.  All device work is issued on one stream, so no cross-stream
+events are needed; the pinned copy makes the host-to-device transfer
+asynchronous.  Two consumers:
+
+* the windowed path pairs each frame with the previous one into a
+  doubled-CPI window (``main_produce_dataset_win_xzr_v2.m:75-103``) and runs
+  the frame processor and the detector over every (beam, slice) RDM
+  (``main_cfar.m:85-96``): the JAX device path, and the port's on the card;
+* the block path (the JAX package's CPU path, and the port's on the CPU)
+  gathers K+1 consecutive frames and runs them through
+  ``models.host_parallel.make_stream_pipeline``: each frame compressed
+  once, one B2 and one B1 launch over the block's K windows, the last
+  frame's compressed form carried into the next block.
 
 With ``mesh`` (the JAX ``models/streaming.py:98-174`` branch) every rank of
 the mesh runs the pipeline over the same capture: beams over ``dp`` (padded
@@ -32,6 +39,7 @@ import torch
 from radar_signal_process_tpu_torch.config import RadarProfile
 from radar_signal_process_tpu_torch.device import resolve_device
 from radar_signal_process_tpu_torch.models.detect import RENOTCH_DIVISOR, Detector, clutter_cells
+from radar_signal_process_tpu_torch.models.host_parallel import EMIT_MODES, make_stream_pipeline
 from radar_signal_process_tpu_torch.models.mtd_pipeline import FrameProcessor
 from radar_signal_process_tpu_torch.ops.dbf import apply_dbf
 from radar_signal_process_tpu_torch.ops.measure import extract_detections
@@ -43,8 +51,6 @@ from radar_signal_process_tpu_torch.parallel.sharding import (
 )
 from radar_signal_process_tpu_torch.params import chain_params
 from radar_signal_process_tpu_torch.utils import Counters
-
-EMIT_MODES = ("full", "flags", "detections")
 
 
 class StreamResult(NamedTuple):
@@ -72,6 +78,16 @@ class StreamingPipeline:
     type, ``parallel.make_mesh``) runs the sharded stream on every rank;
     rank 0 yields the gathered stacks and the detections, the other ranks
     the window index with ``None`` in their place.
+
+    ``use_host_parallel`` selects the block path (module docstring); None
+    means on a CPU ``device``, the JAX rule "on the CPU backend".  A block is
+    ``block_windows`` windows; a frame that does not follow the last one
+    closes the block (its windows still run) and starts the next.  The
+    producer queue holds 2 frames on the windowed path and K+1 on the block
+    path, K being ``block_windows``.  At G2 a pinned frame is 332 x 3404 x 16
+    complex64 = 145 MB; the queue's K+1 frames and the up to K of the block
+    under assembly make 2K+1, ~1.9 GB of pinned host memory at K = 6.  In a
+    block the stacks of ``emit="full"`` are views of the block's tensors.
     """
 
     def __init__(
@@ -88,9 +104,13 @@ class StreamingPipeline:
         stc_curve_db: np.ndarray | None = None,
         pulses=None,
         mesh=None,
+        use_host_parallel: bool | None = None,
+        block_windows: int = 6,
     ):
         if emit not in EMIT_MODES:
             raise ValueError(f"emit must be one of {EMIT_MODES}, got {emit!r}")
+        if block_windows < 1:
+            raise ValueError(f"block_windows must be >= 1, got {block_windows}")
         self.device = resolve_device(device)
         self.reader = reader
         self.profile = profile
@@ -102,13 +122,25 @@ class StreamingPipeline:
         self._dbf = params.dbf
         n_clutter = clutter_cells(profile, profile.prt_per_frame, clutter_v)
         self._mesh = mesh
+        if use_host_parallel is None:
+            use_host_parallel = self.device.type == "cpu"
+        self._block_runner = None
+        queue_depth = 2       # the windowed producer stays a frame ahead
         if mesh is not None:
             self._init_mesh(mesh, n_clutter, win_size, max_detections, stc_curve_db, pulses)
+        elif use_host_parallel:
+            self._block_runner = make_stream_pipeline(
+                profile, win_size, n_clutter, max_detections=max_detections,
+                stc_curve_db=stc_curve_db, pulses=pulses, emit=emit, device=self.device,
+            )
+            self._block_windows = block_windows
+            # the producer stays a block ahead: the next block's frames are
+            # parsed while the current one runs
+            queue_depth = block_windows + 1
         else:
             self._processor = FrameProcessor(profile, params, win_size)
             self._detector = Detector(profile, n_clutter, max_detections, device=self.device)
-        # two parsed frames in flight: the producer stays one frame ahead
-        self._queue: "queue.Queue[Optional[tuple]]" = queue.Queue(maxsize=2)
+        self._queue: "queue.Queue[Optional[tuple]]" = queue.Queue(maxsize=queue_depth)
         self._thread: Optional[threading.Thread] = None
         self._producer_error: Optional[BaseException] = None
 
@@ -204,6 +236,73 @@ class StreamingPipeline:
         return rdms, flags, extract_detections(flags, rdms, self._max_detections)
 
     def __iter__(self) -> Iterator[StreamResult]:
+        if self._block_runner is not None:
+            return self._iter_pipelined()
+        return self._iter_windowed()
+
+    @torch.inference_mode()
+    def _iter_pipelined(self) -> Iterator[StreamResult]:
+        """Block consumer: gather K+1 consecutive frames, run them as one
+        block, yield its windows in order, carry the last frame and its
+        compressed form into the next block."""
+        self._thread = threading.Thread(target=self._produce, daemon=True)
+        self._thread.start()
+        k = self._block_windows
+        carry = None        # (idx, staged frame, its compressed form or None)
+        eos = False
+        while not eos:
+            block, base_idx, pc = [], None, None
+            if carry is not None:
+                base_idx, first, pc = carry
+                block.append(first)
+            carry = None
+            while len(block) < k + 1:
+                t0 = time.perf_counter()
+                item = self._queue.get()
+                self.counters.add("consumer_wait_s", time.perf_counter() - t0)
+                if item is None:
+                    eos = True
+                    break
+                idx, host = item
+                if base_idx is None:
+                    base_idx = idx
+                elif idx != base_idx + len(block):
+                    # a gap closes the block (its windows still run), as the
+                    # windowed iterator skips it; the next block starts here
+                    carry = (idx, self._stage(host), None)
+                    break
+                # frames[0] is staged now, the others when the block
+                # compresses them: each host frame is released once staged
+                block.append(host if block else self._stage(host))
+            if len(block) < 2:
+                continue
+            n_windows = len(block) - 1
+            slots = dict(enumerate(block))
+            staged_last: list = []
+
+            def stage(i):
+                frame = self._stage(slots.pop(i))
+                if i == n_windows:
+                    staged_last.append(frame)
+                return frame
+
+            frames = [slots.pop(0)] + [(lambda i=i: stage(i)) for i in range(1, len(block))]
+            del block
+            results: list = []
+            last = self._block_runner(frames, lambda *r: results.append(r), carry=pc)
+            del frames
+            if carry is None:
+                carry = (base_idx + n_windows, staged_last[0], last)
+            for w, rdms, flags, dets, hits in results:
+                self.counters.add("windows_processed")
+                self.counters.add("cfar_hits", hits)
+                yield StreamResult(base_idx + w, rdms, flags, dets, hits)
+            del results
+        self._thread.join()
+        if self._producer_error is not None:
+            raise self._producer_error
+
+    def _iter_windowed(self) -> Iterator[StreamResult]:
         self._thread = threading.Thread(target=self._produce, daemon=True)
         self._thread.start()
         prev = None

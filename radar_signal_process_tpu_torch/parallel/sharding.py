@@ -87,6 +87,12 @@ def local_block(x: torch.Tensor, mesh: DeviceMesh, spec: Spec) -> torch.Tensor:
     return x
 
 
+def shard_batch(x: torch.Tensor, mesh: DeviceMesh, axis: str = "dp") -> torch.Tensor:
+    """This rank's block of ``x`` with the leading (batch) axis split over
+    ``axis``: the counterpart of the JAX ``NamedSharding(mesh, P(axis))``."""
+    return local_block(x, mesh, (axis,))
+
+
 def gather_blocks(x: torch.Tensor, mesh: DeviceMesh, spec: Spec) -> Optional[torch.Tensor]:
     """Every rank's block ``x`` (laid out by ``spec`` as in
     :func:`local_block`) assembled into the whole array on rank 0; ``None``

@@ -745,3 +745,88 @@ def test_world1_nccl_sharded_pipeline_matches_unsharded(rng, cuda_device):
     assert bool(((rdm - want).abs() <= 2e-5 * peak + RTOL * want.abs()).all())
     rerun, _ = detect_rdm(rdm, prof, 6)
     assert torch.equal(flags, rerun) and bool(flags.any())
+
+
+# ----------------------------------------------------------------- block path
+BLOCK_PROFILE = dataclasses.replace(
+    G2_PROFILE, prt_per_frame=64, point_prt=344, segment_points=(40, 80, 224),
+    cfar_segments=((0, 40), (40, 120), (120, 344)), n_channels=2, n_beams=3,
+)
+
+
+@pytest.mark.gpu
+def test_block_path_on_card_matches_windowed(tmp_path, rng, cuda_device, monkeypatch):
+    """``StreamingPipeline(use_host_parallel=True)`` on the card: 4 frames in
+    blocks of 2 windows launch B2 and B1 once per block and compress each
+    frame once; RDMs agree with the windowed path's, flags equal the plain
+    CFAR on the block's own RDMs."""
+    from radar_signal_process_tpu_torch.ingest import G2FrameReader
+    from radar_signal_process_tpu_torch.models import host_parallel as hp
+    from radar_signal_process_tpu_torch.models.detect import make_detector
+    from radar_signal_process_tpu_torch.models.streaming import StreamingPipeline
+    from radar_signal_process_tpu_torch.sim import write_g2_capture
+
+    prof = BLOCK_PROFILE
+    shape = (4, 64, 344, 2)
+    iq = (rng.integers(-300, 300, shape) + 1j * rng.integers(-300, 300, shape)).astype(np.complex64)
+    iq[:, :, 200, 1] += 20000.0 * np.exp(1j * 2 * np.pi * 0.25 * np.arange(4 * 64)).reshape(4, 64)
+    write_g2_capture(str(tmp_path), iq, prof, data_type=1)
+    calls = []
+    real = hp.segmented_pulse_compression
+    monkeypatch.setattr(hp, "segmented_pulse_compression",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+
+    def run(**kw):
+        pipe = StreamingPipeline(G2FrameReader(str(tmp_path), prof), prof, win_size=2,
+                                 max_frames=4, device=cuda_device, **kw)
+        return [(r.frame_idx, r.rdms.cpu(), r.flags.cpu(), r.cfar_hits) for r in pipe]
+
+    before = (krdm.doppler_rdm.launches, kcfar.cascaded_cfar2d.launches)
+    got = run(use_host_parallel=True, block_windows=2)
+    assert (krdm.doppler_rdm.launches - before[0], kcfar.cascaded_cfar2d.launches - before[1]) \
+        == (2, 2)
+    assert len(calls) == 4
+    want = run()
+    assert [g[0] for g in got] == [w[0] for w in want] == [0, 1, 2]
+    detector = make_detector(prof, device="cpu")
+    for (_, g_rdm, g_flags, g_hits), (_, w_rdm, _, _) in zip(got, want):
+        scale = float(w_rdm.abs().max())
+        torch.testing.assert_close(g_rdm / scale, w_rdm / scale, rtol=RTOL, atol=2e-5)
+        f, _, _ = detector(g_rdm)
+        assert torch.equal(f, g_flags) and g_hits == int(f.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transposed", [False, True], ids=["standard", "transposed"])
+def test_cascade_detector_and_flags_on_card(rng, cuda_device, transposed):
+    """``make_cascade_detector`` and ``make_flags`` on the card run B1 once a
+    call and equal their plain versions on the CPU."""
+    from radar_signal_process_tpu_torch.models import detect as tdetect
+    from radar_signal_process_tpu_torch.models import host_parallel as hp
+
+    prof = BLOCK_PROFILE
+    rdm = (rng.standard_normal((2, 3, 64, 344)).astype(np.float32)) ** 2
+    rdm[..., 8:56, 100] += 30.0
+    x = np.ascontiguousarray(np.swapaxes(rdm, -1, -2)) if transposed else rdm
+    det = tdetect.make_cascade_detector(prof, 4, transposed=transposed, device=cuda_device)
+    before = kcfar.cascaded_cfar2d.launches
+    got = det(torch.from_numpy(x).to(cuda_device))
+    assert kcfar.cascaded_cfar2d.launches == before + 1
+    want = tdetect.make_cascade_detector(prof, 4, transposed=transposed, device="cpu")(
+        torch.from_numpy(x))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    before = kcfar.cascaded_cfar2d.launches
+    flags = hp.make_flags(prof, 4, device=cuda_device)(rdm)
+    assert kcfar.cascaded_cfar2d.launches == before + 1
+    for g, w in zip(flags, hp.make_flags(prof, 4, device="cpu")(rdm)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_prefer_native_on_card_raises(cuda_device):
+    from radar_signal_process_tpu_torch.models.detect import make_cascade_detector
+
+    with pytest.raises(ValueError, match="native"):
+        make_cascade_detector(BLOCK_PROFILE, 4, transposed=True, prefer_native=True,
+                              device=cuda_device)

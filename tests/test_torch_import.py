@@ -573,3 +573,65 @@ def test_chip_smoke_fails_fast_without_gpu(tmp_path):
     alone = _run_smoke(tmp_path)
     assert alone.returncode != 0
     assert '"ok": true' not in alone.stdout
+
+
+def test_native_cfar_source_equals_the_jax_copy():
+    """``kernels/native/cfar.cpp`` is the JAX package's, byte for byte."""
+    got = PACKAGE / "kernels" / "native" / "cfar.cpp"
+    want = REPO / "radar_signal_process_tpu" / "kernels" / "native" / "cfar.cpp"
+    assert got.read_bytes() == want.read_bytes()
+
+
+_BLOCK_PACKAGE_FREE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["radar_signal_process_tpu"] = None   # the JAX package, blocked
+import dataclasses
+
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+from radar_signal_process_tpu_torch.config import G2_PROFILE
+from radar_signal_process_tpu_torch.kernels import cost_model, native_cfar
+from radar_signal_process_tpu_torch.models import host_parallel as hp
+from radar_signal_process_tpu_torch.models.detect import make_cascade_detector
+from radar_signal_process_tpu_torch.models.mtd_pipeline import process_frame_pair
+from radar_signal_process_tpu_torch.parallel.sharding import shard_batch  # noqa: F401
+
+prof = dataclasses.replace(
+    G2_PROFILE, prt_per_frame=32, point_prt=128, segment_points=(24, 40, 64),
+    cfar_segments=((0, 40), (40, 128)), n_channels=2, n_beams=2,
+)
+rng = np.random.default_rng(1)
+shape = (2, 32, 128)
+frames = [torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                           .astype(np.complex64)) for _ in range(3)]
+got = []
+hp.make_stream_pipeline(prof, 2, 2, max_detections=4, device="cpu")(
+    frames, lambda w, r, f, d, h: got.append((w, r.shape, h)))
+assert [g[0] for g in got] == [0, 1] and got[0][1] == (2, 2, 32, 128)
+rdms = hp.make_stream_processor(prof, 2, device="cpu")(frames[0], frames[1], frame_idx=0)
+assert torch.allclose(rdms, process_frame_pair(torch.stack(frames[:2]), prof, 2))
+flags, _ = hp.make_flags(prof, 2, device="cpu")(rdms)
+if native_cfar.native_cfar_available():
+    native, _ = make_cascade_detector(prof, 2, transposed=True, prefer_native=True,
+                                      device="cpu")(rdms.mT)
+    assert torch.equal(native.mT, flags)
+assert cost_model.g2_frame_fused_cfar_projection()["bound_by"] == "bytes"
+assert sys.modules["radar_signal_process_tpu"] is None and sys.modules["jax"] is None
+assert not [m for m in sys.modules if m.startswith(("radar_signal_process_tpu.", "jax."))]
+print("block package-free ok")
+"""
+
+
+def test_block_modules_run_with_the_jax_package_unimportable():
+    """With ``radar_signal_process_tpu`` and jax blocked, the block runner,
+    the stream processor, ``make_flags``, the native cascade, the cost model
+    and ``process_frame_pair`` load and run on the CPU."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCK_PACKAGE_FREE], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("block package-free ok")

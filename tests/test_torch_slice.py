@@ -2,7 +2,8 @@
 
 A capture written by the real ``write_g2_capture`` goes through the JAX
 ``StreamingPipeline(use_host_parallel=False)`` (the windowed device branch)
-and the port's ``StreamingPipeline(device="cpu")``.  RDM stacks agree within
+and the port's windowed path, ``StreamingPipeline(device="cpu",
+use_host_parallel=False)``.  RDM stacks agree within
 the repo's f32 tolerance; flags are compared by rerunning each package's
 detector on the other's RDMs (CLAUDE.md: FFT outputs differ in the last
 bits, the CFAR on a given RDM does not); hit counts are equal; valid
@@ -100,7 +101,8 @@ def _torch_run(cap, profile, n_frames, dbf, **kw):
     profile = as_config(profile, tconfig)
     pipe = StreamingPipeline(
         tingest.G2FrameReader(cap, profile), profile, max_frames=n_frames,
-        dbf_coeffs=_coeffs(profile) if dbf else None, device="cpu", **kw,
+        dbf_coeffs=_coeffs(profile) if dbf else None, device="cpu", use_host_parallel=False,
+        **kw,
     )
     return list(pipe), pipe.counters.snapshot()
 
