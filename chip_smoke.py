@@ -86,7 +86,7 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    window, stitched, bit for bit against the plain version and B1 on the
    whole RDM, both timed; and
    ``cli e2e --mesh 1x1`` over the e2e capture, its rows those of ``cli
-   e2e`` for the slice, bit for bit.  NCCL takes one GPU per rank, so no
+   e2e`` for the slice and the profile's 13 beams, bit for bit.  NCCL takes one GPU per rank, so no
    group of more than one rank runs on one card;
 15. block  — the block path (``models/host_parallel.py``), run within phase
    5 on its capture: ``StreamingPipeline(use_host_parallel=True,
@@ -100,7 +100,14 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    device ms per window,
    launches per window and peak memory of both; ``make_stream_processor``
    (PC once per frame), ``make_flags`` (one B1 launch) and the native C++
-   cascade on the card's host, bit for bit against B1, with its ms per RDM.
+   cascade on the card's host, bit for bit against B1, with its ms per RDM;
+16. bench  — ``radar_signal_process_tpu_torch.bench`` at a short length
+   (3 headline calls a batch, a 7-frame e2e stream, the oracle skipped):
+   every workload (the G2 headline window, the block form, the stages, G0,
+   ingest, the e2e stream windowed and in blocks, the device's busy share)
+   with its checks, B1 and B2 held to their plain versions on the first
+   window; its JSON line is printed as it stands and its launches per
+   workload join the ``kernels`` line.
 
 The line before the last is a JSON summary of the kernels (with each one's
 bound from ``kernels/cost_model.py``: the larger of its bytes over 3.35 TB/s
@@ -1571,12 +1578,14 @@ def phase_e2e(dev) -> dict:
 
 def phase_e2e_mesh(dev, cap: str, e2e_frames: list, win_slice: int = 1) -> dict:
     """``cli e2e --mesh 1x1 --win-slice 1`` over the e2e capture: an NCCL
-    group of one, B2 and B1 once per window,
-    and the rows of ``cli e2e`` for that slice, bit for bit."""
+    group of one, B2 and B1 once per window, and the rows of ``cli e2e``
+    for that slice and the profile's 13 beams of the 16 channel rows (as
+    the JAX ``e2e --mesh`` reports them, ROADMAP C11), bit for bit."""
     import contextlib
     import io
 
     from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.config import G2_PROFILE as prof
     from radar_signal_process_tpu_torch.kernels import cfar as kcfar
     from radar_signal_process_tpu_torch.kernels import rdm as krdm
 
@@ -1592,12 +1601,14 @@ def phase_e2e_mesh(dev, cap: str, e2e_frames: list, win_slice: int = 1) -> dict:
     launches = {"doppler_rdm": krdm.doppler_rdm.launches,
                 "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches}
     got = json.loads(buf.getvalue())["frames"]
-    want = [{"frame": f["frame"], "detections": [r for r in f["detections"] if r[1] == win_slice]}
+    want = [{"frame": f["frame"], "detections": [r for r in f["detections"]
+                                                 if r[1] == win_slice and r[0] < prof.n_beams]}
             for f in e2e_frames]
     same = ([f["frame"] for f in got] == [f["frame"] for f in want]
             and all(sorted(g["detections"]) == sorted(w["detections"]) for g, w in zip(got, want)))
     print(f"mesh: cli e2e --mesh 1x1 --win-slice {win_slice}: rc {rc}, launches {launches}; "
-          f"rows vs cli e2e's of slice {win_slice} ({sum(len(w['detections']) for w in want)} rows) "
+          f"rows vs cli e2e's of slice {win_slice}, rows 0-{prof.n_beams - 1} "
+          f"({sum(len(w['detections']) for w in want)} rows) "
           f"-> {'bit-identical' if same else 'MISMATCH'}; mtd+cfar ms per window "
           f"{[round(s * 1e3, 3) for _, s in windows]}")
     if rc != 0 or launches != {"doppler_rdm": 2, "cascaded_cfar2d": 2}:
@@ -1852,6 +1863,37 @@ def phase_dmx_outputs(dev, root: str, fd: float, r_true: float) -> dict:
     return {"launches": launches, "residuals": res, "plots": plots}
 
 
+def phase_bench(dev) -> dict:
+    """The port's bench at a short length on the card (phase 16): it prints
+    its JSON line; every check must pass and each kernel must have run in
+    the workloads that drive it."""
+    from radar_signal_process_tpu_torch import bench
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.kernels import pc_rdm as kpcr
+    from radar_signal_process_tpu_torch.kernels import rdm as krdm
+
+    krdm.doppler_rdm.launches = kcfar.cascaded_cfar2d.launches = kpcr.fused_pc_rdm.launches = 0
+    t0 = time.perf_counter()
+    result = bench.run(dev, repeat=3, stream_frames=7, skip_oracle=True)
+    wall = time.perf_counter() - t0
+    counts = result["launches"]
+    if not result["ok"]:
+        fail(f"bench: checks failed: {[k for k, v in result['checks'].items() if not v['ok']]}")
+    want = {"doppler_rdm": ("headline", "block", "stages", "e2e_stream", "e2e_stream_block"),
+            "cascaded_cfar2d": ("headline", "block", "stages", "g0", "e2e_stream",
+                                "e2e_stream_block"),
+            "fused_pc_rdm": ("g0",)}
+    idle = [(k, w) for k, ws in want.items() for w in ws if counts[w][k] < 1]
+    if idle:
+        fail(f"bench: a kernel did not run in a workload that drives it: {idle}")
+    print(f"bench: all workloads in {wall:.1f} s, every check ok; headline "
+          f"{result['value']:.2f} frames/s (p50 {result['frame_ms_p50']:.3f} ms, "
+          f"{result['timing_samples']} calls), block {result['block_window_ms_p50']:.3f} ms a "
+          f"window, e2e stream {result['e2e_stream_frames_per_s']:.2f} windows/s; launches "
+          f"{counts} | {SMI['line']}")
+    return result
+
+
 def main() -> int:
     name = phase_device()
     dev = torch.device("cuda:0")
@@ -1874,6 +1916,7 @@ def main() -> int:
     sweep = phase_sweep(dev)
     e2e = phase_e2e(dev)
     stages = e2e["stages"]
+    bench_launches = phase_bench(dev)["launches"]
     b1_launches = {"stream": launches["cascaded_cfar2d"],
                    "stream --mesh": mesh["launches"]["cascaded_cfar2d"],
                    "e2e --mesh": e2e["mesh"]["launches"]["cascaded_cfar2d"],
@@ -1884,6 +1927,8 @@ def main() -> int:
                    **{k: v["cascaded_cfar2d"] for k, v in stages["launches"].items()
                       if v["cascaded_cfar2d"]},
                    **{k: v["cascaded_cfar2d"] for k, v in block["launches"].items()
+                      if v["cascaded_cfar2d"]},
+                   **{f"bench {k}": v["cascaded_cfar2d"] for k, v in bench_launches.items()
                       if v["cascaded_cfar2d"]}}
     b2_launches = {"stream": launches["doppler_rdm"],
                    "stream --mesh": mesh["launches"]["doppler_rdm"],
@@ -1894,6 +1939,8 @@ def main() -> int:
                    **{k: v["doppler_rdm"] for k, v in stages["launches"].items()
                       if v["doppler_rdm"]},
                    **{k: v["doppler_rdm"] for k, v in block["launches"].items()
+                      if v["doppler_rdm"]},
+                   **{f"bench {k}": v["doppler_rdm"] for k, v in bench_launches.items()
                       if v["doppler_rdm"]}}
     kernels = [
         {"name": "doppler_rdm", "route": "cuda",
@@ -1920,9 +1967,11 @@ def main() -> int:
         {"name": "fused_pc_rdm", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/pc_rdm.cu",
          "replaces": "radar_signal_process_tpu/kernels/pc_rdm_pallas.py:253",
-         "launches": g0["launches"]["fused_pc_rdm"] + g0["outputs"]["launches"]["fused_pc_rdm"],
+         "launches": (g0["launches"]["fused_pc_rdm"] + g0["outputs"]["launches"]["fused_pc_rdm"]
+                      + bench_launches["g0"]["fused_pc_rdm"]),
          "launches_by_path": {"dmx": g0["launches"]["fused_pc_rdm"],
-                              "dmx outputs": g0["outputs"]["launches"]["fused_pc_rdm"]},
+                              "dmx outputs": g0["outputs"]["launches"]["fused_pc_rdm"],
+                              "bench g0": bench_launches["g0"]["fused_pc_rdm"]},
          **b3_stats},
     ]
     print(json.dumps({"kernels": kernels}))

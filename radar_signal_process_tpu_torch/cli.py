@@ -713,13 +713,15 @@ def cmd_e2e(args, on_result: Optional[Callable] = None) -> int:
 
 def _e2e_mesh(args, profile, device, mesh, on_result: Optional[Callable] = None) -> int:
     """``e2e --mesh``: slice ``--win-slice`` of every window over the mesh
-    (``parallel.make_sharded_pipeline``): every beam of the capture, padded
-    to the dp extent, PRT-sharded then range-sharded over sp, the halo CFAR
-    after the divisor-20 re-notch; rank 0 gathers the RDMs and flags and
-    prints the rows of every beam of the capture (where the JAX ``e2e
-    --mesh`` keeps the profile's ``n_beams`` rows, ROADMAP C11).
+    (``parallel.make_sharded_pipeline``): the capture's channel rows padded
+    by ``(-profile.n_beams) % dp`` zero rows, split over dp,
+    PRT-sharded then range-sharded over sp, the halo CFAR after the
+    divisor-20 re-notch; rank 0 gathers the RDMs and flags and prints rows
+    ``[:profile.n_beams]``, as the JAX ``e2e --mesh`` does (ROADMAP C11:
+    it counts the profile's beams on a capture of channels).  Rows that
+    the padding leaves unsplit over dp raise, where the JAX shard fails.
     ``on_result`` (rank 0) sees ``(frame, rdm, flags, dets, seconds)``, the
-    stacks (beams, n_prt, n_points)."""
+    stacks (rows, n_prt, n_points)."""
     from radar_signal_process_tpu_torch.ingest import g2_reader_class
     from radar_signal_process_tpu_torch.models.detect import RENOTCH_DIVISOR, clutter_cells
     from radar_signal_process_tpu_torch.models.mtd_pipeline import window_slice_starts
@@ -740,6 +742,11 @@ def _e2e_mesh(args, profile, device, mesh, on_result: Optional[Callable] = None)
     dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
     if n_prt % sp:
         raise ValueError(f"{n_prt} PRTs do not split over sp={sp}")
+    pad = (-profile.n_beams) % dp
+    if (profile.n_channels + pad) % dp:
+        raise ValueError(
+            f"{profile.n_channels} channel rows + {pad} padding rows (to the profile's "
+            f"{profile.n_beams} beams) do not split over dp={dp}")
     # this rank's rows [r0, r1) of the doubled CPI (prev ++ cur)
     r0 = start + axis_index(mesh, "sp") * (n_prt // sp)
     r1 = r0 + n_prt // sp
@@ -760,17 +767,15 @@ def _e2e_mesh(args, profile, device, mesh, on_result: Optional[Callable] = None)
                     echo = torch.cat([prev[:, min(r0, n_prt) : min(r1, n_prt)],
                                       cur[:, max(r0, n_prt) - n_prt : max(r1, n_prt) - n_prt]],
                                      dim=1)
-                    n_beams = echo.shape[0]
-                    if n_beams % dp:
-                        echo = torch.cat([echo, echo.new_zeros(
-                            (-n_beams % dp,) + tuple(echo.shape[1:]))])
+                    if pad:
+                        echo = torch.cat([echo, echo.new_zeros((pad,) + tuple(echo.shape[1:]))])
                     x = local_block(echo, mesh, ("dp", None, None)).contiguous().to(device)
                 with timers.stage("mtd+cfar"):
                     rdm, flags, _ = run(x)
                     spec = ("dp", None, "sp")
                     rdm, flags = gather_blocks(rdm, mesh, spec), gather_blocks(flags, mesh, spec)
                     if rdm is not None:
-                        rdm, flags = rdm[:n_beams], flags[:n_beams]
+                        rdm, flags = rdm[: profile.n_beams], flags[: profile.n_beams]
                         dets = extract_detections(flags, rdm, args.max_detections)
                 if rdm is not None:
                     results.append({"frame": frame_idx - 1,

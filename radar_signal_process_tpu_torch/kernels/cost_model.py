@@ -65,6 +65,41 @@ def fused_pc_rdm_cost(batch: int, n_prt: int, n_in: int, n_out: int, n_fft: int)
     return roofline(hbm_bytes, TF32_SPLIT * flops, H100_TF32_FLOPS)
 
 
+def pulse_compression_cost(profile, n_rows: int, filter_lens) -> dict:
+    """PC (``ops/pulse_compression.py::segmented_pulse_compression``) over
+    ``n_rows`` PRT rows of ``profile.point_prt`` samples: the complex64 echo
+    and each segment's filter spectrum read once, the complex64 output
+    written once; per row and segment a forward and an inverse FFT of the
+    convolution length L (5 L log2 L flops each) and L complex products (6
+    flops), at the FP32 peak (cuFFT runs outside the tensor cores)."""
+    import math
+
+    from radar_signal_process_tpu_torch.ops.pulse_compression import fft_len
+
+    lengths = [fft_len(n + f - 1) for n, f in zip(profile.segment_points, filter_lens)]
+    hbm_bytes = 2 * n_rows * profile.point_prt * 8 + sum(lengths) * 8
+    flops = n_rows * sum(10.0 * n * math.log2(n) + 6.0 * n for n in lengths)
+    return roofline(hbm_bytes, flops, H100_FP32_FLOPS)
+
+
+def dbf_cost(n_samples: int, n_channels: int, n_beams: int) -> dict:
+    """DBF (``ops/dbf.py::apply_dbf``) of ``n_samples`` channel vectors: the
+    complex64 samples and coefficients read once, the complex64 beams
+    written once; 8 real flops per complex multiply-add at the FP32 peak."""
+    hbm_bytes = (n_samples * n_channels + n_beams * n_channels + n_samples * n_beams) * 8
+    return roofline(hbm_bytes, 8.0 * n_samples * n_channels * n_beams, H100_FP32_FLOPS)
+
+
+def extraction_cost(batch: int, n_velocity: int, n_range: int, max_detections: int) -> dict:
+    """The detection list (``ops/measure.py::extract_detections``): the bool
+    flags and the f32 RDM read once, per RDM ``max_detections`` entries of
+    two int32 indices, an f32 amplitude and a bool written once; a select
+    and a compare per cell at the FP32 peak."""
+    cells = batch * n_velocity * n_range
+    hbm_bytes = cells * 5 + batch * max_detections * 13
+    return roofline(hbm_bytes, 2.0 * cells, H100_FP32_FLOPS)
+
+
 def sharded_stream_comm_cost(prof=None, dp: int = 1, sp: int = 2, win_size: int = 4,
                              n_clutter: int = 14, cfg: CFARConfig | None = None,
                              link_bw: float = H100_NVLINK_BPS) -> dict:

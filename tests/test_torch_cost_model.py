@@ -57,6 +57,36 @@ def test_b3_bound_at_g0():
     assert round(total["sol_s"] * 1e3, 3) == 0.214
 
 
+def test_pc_bytes_and_bound_at_g2():
+    """PC over a G2 window (13 beams x 664 PRT x 3404 samples): the complex64
+    echo in and out, 470.2 MB with the three filter spectra (FFT lengths 270,
+    960, 3200); 0.1403 ms, bound by bytes."""
+    c = cost.pulse_compression_cost(G2_PROFILE, 13 * 664, (35, 200, 700))
+    assert c["hbm_bytes"] == 2 * 13 * 664 * 3404 * 8 + (270 + 960 + 3200) * 8
+    assert round(c["hbm_bytes"] / 1e6, 1) == 470.2 and c["bound_by"] == "bytes"
+    assert round(c["sol_s"] * 1e3, 4) == 0.1403
+    assert round(c["flops"] / 1e9, 2) == 4.45
+
+
+def test_dbf_bytes_and_bound_at_g2():
+    """DBF of one G2 frame (332 x 3404 samples, 16 channels -> 13 beams):
+    262.2 MB, 1.88 GFLOP; 0.0783 ms, bound by bytes."""
+    c = cost.dbf_cost(332 * 3404, 16, 13)
+    assert c["hbm_bytes"] == (332 * 3404 * 16 + 13 * 16 + 332 * 3404 * 13) * 8
+    assert round(c["hbm_bytes"] / 1e6, 1) == 262.2 and c["bound_by"] == "bytes"
+    assert c["flops"] == 8.0 * 332 * 3404 * 16 * 13
+    assert round(c["sol_s"] * 1e3, 4) == 0.0783
+
+
+def test_extraction_bytes_and_bound_at_g2():
+    """The detection list of a G2 window (52 RDMs, 64 entries each): the
+    flags and the RDM read once, 293.9 MB; 0.0877 ms, bound by bytes."""
+    c = cost.extraction_cost(52, 332, 3404, 64)
+    assert c["hbm_bytes"] == 52 * 332 * 3404 * 5 + 52 * 64 * 13
+    assert round(c["hbm_bytes"] / 1e6, 1) == 293.9 and c["bound_by"] == "bytes"
+    assert round(c["sol_s"] * 1e3, 4) == 0.0877
+
+
 @pytest.mark.parametrize("dp, sp", [(1, 2), (2, 2), (1, 4), (4, 1)])
 def test_sharded_stream_bytes_equal_the_jax_model(dp, sp):
     """Per window and card, the all-to-all and halo bytes of the JAX model;

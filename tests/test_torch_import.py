@@ -279,6 +279,51 @@ def test_port_runs_with_the_jax_package_unimportable():
     assert proc.stdout.strip().endswith("package-free ok")
 
 
+_BENCH_PACKAGE_FREE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["radar_signal_process_tpu"] = None   # the JAX package, blocked
+sys.modules["bench"] = None                      # and the JAX system's bench.py
+import contextlib
+import dataclasses
+import io
+import json
+
+import torch
+
+torch.set_num_threads(2)
+from radar_signal_process_tpu_torch import bench
+from radar_signal_process_tpu_torch.config import G0_PROFILE, G2_PROFILE, G0ChainConfig
+
+tiny = dataclasses.replace(
+    G2_PROFILE, prt_per_frame=64, point_prt=344, segment_points=(24, 80, 240),
+    cfar_segments=((0, 24), (24, 104), (104, 344)), n_beams=3,
+)
+g0 = (dataclasses.replace(G0_PROFILE, prt_per_frame=128, point_prt=182, segment_points=(62, 120)),
+      dataclasses.replace(G0ChainConfig(), pc_fft_length=128, mtd_fft_length=256))
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    result = bench.run("cpu", tiny, g0, repeat=2, stream_frames=3)
+line = json.loads(out.getvalue().strip().splitlines()[-1])
+assert line["ok"] and line["device"] == "cpu" and line["oracle_frame_s"] > 0
+assert sys.modules["radar_signal_process_tpu"] is None and sys.modules["jax"] is None
+assert not [m for m in sys.modules if m.startswith(("radar_signal_process_tpu.", "jax."))]
+print("bench package-free ok")
+"""
+
+
+def test_bench_runs_with_the_jax_package_unimportable():
+    """With jax, the JAX package and the JAX system's ``bench.py`` blocked,
+    the port's bench runs every workload at cut geometry on the CPU, the
+    numpy loop oracle of ``tests/oracle`` included, and its checks pass."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BENCH_PACKAGE_FREE], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("bench package-free ok")
+
+
 def test_no_jax_package_import_or_path_load_in_port_sources():
     """No port source and not chip_smoke.py imports ``radar_signal_process_tpu``
     (without the ``_torch`` suffix) or loads a file by path."""

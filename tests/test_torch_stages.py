@@ -53,6 +53,9 @@ TINYS = dataclasses.replace(
     jconfig.G2_PROFILE, prt_per_frame=32, point_prt=344, segment_points=(40, 80, 224),
     cfar_segments=((0, 40), (40, 120), (120, 344)), n_channels=2, n_beams=2,
 )
+# more channels than beams: `e2e` runs without DBF, so its rows are channels
+# (ROADMAP C11)
+TINYC = dataclasses.replace(TINY, n_channels=3)
 PORT = ["--device", "cpu"]
 RDM_ATOL, RDM_RTOL = 2e-5, 2e-4
 
@@ -61,7 +64,7 @@ RDM_ATOL, RDM_RTOL = 2e-5, 2e-4
 def profiles():
     """Both packages' profile tables get the reduced geometries."""
     with pytest.MonkeyPatch.context() as mp:
-        for name, prof in (("TINY", TINY), ("TG1", TG1), ("TINYS", TINYS)):
+        for name, prof in (("TINY", TINY), ("TG1", TG1), ("TINYS", TINYS), ("TINYC", TINYC)):
             mp.setitem(jconfig.PROFILES, name, prof)
             mp.setitem(tconfig.PROFILES, name, as_config(prof, tconfig))
         yield
@@ -521,3 +524,32 @@ def test_stream_hooks_match_jax(tmp_path, capsys):
         assert (g["cfar_hits"], g["detections_per_beam"]) == (
             w["cfar_hits"], w["detections_per_beam"])
     assert [f["cfar_hits"] for f in base["frames"]] != [f["cfar_hits"] for f in got["frames"]]
+
+
+# ---------------------------------------------------------------- e2e --mesh
+def test_e2e_mesh_reports_the_jax_rows_with_more_channels_than_beams(tmp_path, capsys):
+    """``e2e --mesh 1x1`` over a capture of 3 channels with a profile of 2
+    beams prints the JAX package's rows (ROADMAP C11): rows ``[:n_beams]``
+    of the slice, those of the port's ``e2e`` for channels 0 and 1, where
+    the plain ``e2e`` also reports channel 2."""
+    cap = str(tmp_path / "cap")
+    assert jcli.main(["simulate", "--output", cap, "--profile", "TINYC", "--frames", "3",
+                      "--velocity", "-5.7", "--range", "60", "--scr", "25"]) == 0
+    argv = ["e2e", "--input", cap, "--profile", "TINYC", "--frames", "2", "--win-slice", "1"]
+    capsys.readouterr()
+
+    def rows(main, extra):
+        assert main(argv + extra) == 0
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])["frames"]
+
+    want = rows(jcli.main, ["--mesh", "1x1"])
+    got = rows(tcli.main, ["--mesh", "1x1"] + PORT)
+    plain = rows(tcli.main, PORT)
+    assert [f["frame"] for f in got] == [f["frame"] for f in want] == [0, 1]
+    assert any(r[0] == 2 for f in plain for r in f["detections"])
+    assert all(f["detections"] for f in want)
+    for g, w, p in zip(got, want, plain):
+        gs, ws = sorted(g["detections"]), sorted(w["detections"])
+        assert [r[:4] for r in gs] == [r[:4] for r in ws]
+        np.testing.assert_allclose([r[4] for r in gs], [r[4] for r in ws], rtol=1e-4)
+        assert gs == sorted(r for r in p["detections"] if r[0] < 2 and r[1] == 1)

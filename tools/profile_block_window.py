@@ -12,7 +12,8 @@ frame compressed once, one B2 and one B1 launch, one top-k) and the same six
 windows through ``FrameProcessor`` + ``Detector`` one at a time, then traces
 one of each with ``torch.profiler`` and prints each side's device time per
 window by kernel (the twelve largest) and the device's busy share of the
-traced wall time.  Prints one JSON line last.  Imports only the port.
+traced wall time (the union of its device intervals,
+``bench.device_busy_share``).  Prints one JSON line last.  Imports only the port.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
+from radar_signal_process_tpu_torch.bench import device_busy_share  # noqa: E402
 from radar_signal_process_tpu_torch.config import G2_PROFILE as PROF  # noqa: E402
 from radar_signal_process_tpu_torch.models.detect import (  # noqa: E402
     clutter_cells,
@@ -95,9 +97,9 @@ def main() -> int:
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
+                wall_s = time.perf_counter() - t0
             kernels[k] = by_kernel(prof)
-            busy[k] = sum(kernels[k].values()) * K / wall_ms
+            busy[k] = device_busy_share(prof, wall_s)
     ms = {k: float(np.median(v)) for k, v in times.items()}
     print(f"{smi} | G2 windows, device ms per window (CUDA events, median of {REPS}, in turns, "
           f"{K} windows a turn): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
