@@ -107,7 +107,18 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    ingest, the e2e stream windowed and in blocks, the device's busy share)
    with its checks, B1 and B2 held to their plain versions on the first
    window; its JSON line is printed as it stands and its launches per
-   workload join the ``kernels`` line.
+   workload join the ``kernels`` line;
+17. entry  — ``radar_signal_process_tpu_torch.entry``: ``entry()``'s forward
+   step on its example window at full G2 width (13 x 664 x 3404 complex64
+   from ``default_rng(0)``), B2 and B1 once each; its RDMs against B2's
+   plain version on the same compressed slices (B2 run again on them gives
+   the step's RDMs bit for bit, so the inputs are the step's), its flags
+   bit for bit against B1's plain version on those RDMs; ms per call
+   (median of 10, CUDA events) beside the bench headline's window time;
+   then ``dryrun_multichip(1, "cuda")`` in an NCCL group of one (its pp,
+   g0 and ep legs need two ranks or more, as in the JAX code): its line,
+   each leg's device ms, finite outputs, and its launches join the
+   ``kernels`` line.
 
 The line before the last is a JSON summary of the kernels (with each one's
 bound from ``kernels/cost_model.py``: the larger of its bytes over 3.35 TB/s
@@ -1894,6 +1905,166 @@ def phase_bench(dev) -> dict:
     return result
 
 
+def hold_dryrun_legs(legs: dict, dev) -> dict:
+    """The world-1 dry run's legs at their own shapes (2 beams x 8 pulses x
+    3404 cells; n_clutter 2 and the divisor-20 re-notch leave 3 rows, below
+    the CFAR parity floor), held to the plain versions on the same inputs,
+    redrawn from ``default_rng(0)`` in the dry run's order: each RDM to B2's
+    plain version within the RDM tolerance, each flag plane bit for bit to
+    B1's plain version run on that RDM after the re-notch."""
+    import dataclasses
+
+    from radar_signal_process_tpu_torch.config import CFARConfig, G2_PROFILE
+    from radar_signal_process_tpu_torch.kernels.rdm import doppler_rdm_plain
+    from radar_signal_process_tpu_torch.models.detect import clutter_cells, renotch_mask
+    from radar_signal_process_tpu_torch.models.mtd_pipeline import slice_cpi_window
+    from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
+    from radar_signal_process_tpu_torch.ops.mtd import notch_rows
+    from radar_signal_process_tpu_torch.ops.pulse_compression import (
+        segmented_pulse_compression,
+    )
+    from radar_signal_process_tpu_torch.params import cpi_params
+
+    shape = (2, 8, G2_PROFILE.point_prt)    # (2 dp, 8 sp, cells) at dp = sp = 1
+    prof = dataclasses.replace(G2_PROFILE, prt_per_frame=shape[1], n_beams=shape[0])
+    rng = np.random.default_rng(0)
+
+    def draw():
+        x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+    echo = draw()
+    frames = [draw() for _ in range(3)]
+    cubes = [draw() for _ in range(5)]      # the StreamingPipeline's frames, (beams, prt, cells)
+    params = cpi_params(prof, shape[1], dev)
+    notch = notch_rows(prof.mtd.fft_length or shape[1], prof.mtd.notch_divisor)
+
+    def plain_rdm(x, window: bool):
+        pc = segmented_pulse_compression(x, prof, params.pc_spectra, params.pc_filter_lens)
+        if window:
+            pc = slice_cpi_window(pc, 4)
+        return doppler_rdm_plain(pc, params.dft_re, params.dft_im, notch)
+
+    def plain_flags(rdm, cfg, n_clutter):
+        keep = torch.as_tensor(renotch_mask(prof, shape[1], n_clutter, 20), device=dev)
+        return segmented_cfar(rdm * keep[:, None], prof.cfar_segments, cfg, n_clutter)[0]
+
+    cfg5 = CFARConfig(threshold=5.0)
+    n_clutter = clutter_cells(prof, shape[1], 1e-6)
+    held = [("pipeline_rdm", "pipeline_flags", echo, False, cfg5, 2),
+            ("stream_rdm0", "stream_flags0", torch.cat(frames[:2], -2), True, cfg5, 2),
+            ("stream_rdm1", "stream_flags1", torch.cat(frames[1:], -2), True, cfg5, 2),
+            ("stream_rdm1_fresh", None, torch.cat(frames[1:], -2), True, None, None)]
+    held += [(f"streaming_rdm{w}", f"streaming_flags{w}", torch.cat(cubes[w:w + 2], -2), True,
+              prof.cfar, n_clutter) for w in range(4)]
+    worst, failed = 0.0, []
+    with torch.inference_mode():
+        for rdm_key, flags_key, x, window, cfg, n_c in held:
+            got, want = legs[rdm_key], plain_rdm(x, window)
+            if got.shape != want.shape:
+                failed.append(f"{rdm_key} {tuple(got.shape)} != {tuple(want.shape)}")
+                continue
+            worst = max(worst, rdm_error(got, want)[0])
+            if not bool(((got - want).abs() <= RDM_ATOL + RDM_RTOL * want.abs()).all()):
+                failed.append(f"{rdm_key} vs B2 plain")
+            if flags_key is not None:
+                differ = int((legs[flags_key].bool() != plain_flags(got, cfg, n_c)).sum())
+                if differ:
+                    failed.append(f"{flags_key}: {differ} flags differ from B1 plain")
+    return {"legs": len(held), "b2_max_abs_err": worst, "failed": failed}
+
+
+def phase_entry(dev, headline_ms: float) -> dict:
+    """Phase 17: ``entry()`` at full G2 width, held to the plain versions,
+    timed beside the bench headline; then the world-1 dry run."""
+    import contextlib
+    import io
+
+    from radar_signal_process_tpu_torch import entry
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.kernels import rdm as krdm
+    from radar_signal_process_tpu_torch.models.detect import renotch_mask
+    from radar_signal_process_tpu_torch.models.mtd_pipeline import slice_cpi_window
+    from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
+    from radar_signal_process_tpu_torch.ops.mtd import notch_rows
+    from radar_signal_process_tpu_torch.ops.pulse_compression import (
+        segmented_pulse_compression,
+    )
+    from radar_signal_process_tpu_torch.params import cpi_params
+
+    forward, (x,) = entry.entry(dev)
+    prof, n_clutter, cfg = forward.profile, forward.n_clutter, forward.cfg
+    krdm.doppler_rdm.launches = kcfar.cascaded_cfar2d.launches = 0
+    with torch.inference_mode():
+        rdms, flags = forward(x)
+    torch.cuda.synchronize()
+    launches = {"doppler_rdm": krdm.doppler_rdm.launches,
+                "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches}
+    want_shape = (prof.n_beams, 4, prof.prt_per_frame, prof.point_prt)
+    if tuple(rdms.shape) != want_shape or flags.shape != rdms.shape:
+        fail(f"entry: outputs {tuple(rdms.shape)} / {tuple(flags.shape)}, want {want_shape}")
+    if not torch.isfinite(rdms).all():
+        fail("entry: non-finite RDMs")
+    if launches != {"doppler_rdm": 1, "cascaded_cfar2d": 1}:
+        fail(f"entry: launches {launches} (want one B2 and one B1)")
+    with torch.inference_mode():
+        params = cpi_params(prof, prof.prt_per_frame, x.device)
+        pc = segmented_pulse_compression(slice_cpi_window(x, 4), prof, params.pc_spectra,
+                                         params.pc_filter_lens)
+        notch = notch_rows(prof.prt_per_frame, prof.mtd.notch_divisor)
+        same_input = torch.equal(krdm.doppler_rdm(pc, params.dft_re, params.dft_im, notch), rdms)
+        plain = krdm.doppler_rdm_plain(pc, params.dft_re, params.dft_im, notch)
+        del pc
+        max_abs, max_rel, peak = rdm_error(rdms, plain)
+        rdm_ok = bool(((rdms - plain).abs() <= RDM_ATOL + RDM_RTOL * plain.abs()).all())
+        del plain
+        keep = torch.as_tensor(renotch_mask(prof, prof.prt_per_frame, n_clutter, 20),
+                               device=x.device)
+        plain_flags, _ = segmented_cfar(rdms * keep[:, None], prof.cfar_segments, cfg, n_clutter)
+        differ = int((flags.bool() != plain_flags).sum())
+        del plain_flags
+        ms = cuda_ms({"entry": lambda: forward(x)})["entry"]
+    print(f"entry: forward step on the {tuple(x.shape)} complex64 example -> rdms "
+          f"{tuple(rdms.shape)}, {int(flags.sum())} flags; launches {launches}; B2 vs plain "
+          f"max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} at peak {peak:.1f} (rtol "
+          f"{RDM_RTOL}, atol {RDM_ATOL}) -> {'ok' if rdm_ok else 'FAIL'}, B2 on the recomputed "
+          f"slices {'bit-identical' if same_input else 'DIFFERS'}; B1 vs plain {differ} flags "
+          f"differ; {ms:.3f} ms per call (median of {REPS}, CUDA events) beside the bench "
+          f"headline's {headline_ms:.3f} ms | {SMI['line']}")
+    if not (rdm_ok and same_input):
+        fail("entry: B2 disagrees with its plain version on the step's inputs")
+    if differ:
+        fail(f"entry: B1 flags differ from its plain version in {differ} cells")
+    x_dev = x.device
+    del rdms, flags, x
+
+    krdm.doppler_rdm.launches = kcfar.cascaded_cfar2d.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        legs = entry.dryrun_multichip(1, "cuda")
+    torch.cuda.synchronize()
+    check = entry.dryrun_multichip.check_launches
+    dry = {"doppler_rdm": krdm.doppler_rdm.launches - check["doppler_rdm"],
+           "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches - check["cascaded_cfar2d"]}
+    for line in buf.getvalue().splitlines():
+        print(f"entry: {line}")
+    if min(dry.values()) < 1:
+        fail(f"entry: the world-1 dry run's legs left a kernel idle: launches {dry}")
+    bad = [k for k, v in legs.items() if v.is_floating_point() and not torch.isfinite(v).all()]
+    if bad:
+        fail(f"entry: dry run outputs non-finite: {bad}")
+    held = hold_dryrun_legs(legs, x_dev)
+    print(f"entry: dryrun_multichip(1) in an NCCL group of one: legs' launches {dry}, its "
+          f"checks' {check}; {held['legs']} leg RDMs vs B2 plain max_abs_err "
+          f"{held['b2_max_abs_err']:.3e} (rtol {RDM_RTOL}, atol {RDM_ATOL}), their flags vs "
+          f"B1 plain -> {'ok' if not held['failed'] else held['failed']} | {SMI['line']}")
+    if held["failed"]:
+        fail(f"entry: dry run legs disagree with the plain versions: {held['failed']}")
+    return {"launches": launches, "dryrun_launches": dry, "dryrun_check_launches": check,
+            "ms": ms, "headline_ms": headline_ms,
+            "b2_max_abs_err": max(max_abs, held["b2_max_abs_err"]), "b1_flags_differ": differ}
+
+
 def main() -> int:
     name = phase_device()
     dev = torch.device("cuda:0")
@@ -1916,7 +2087,9 @@ def main() -> int:
     sweep = phase_sweep(dev)
     e2e = phase_e2e(dev)
     stages = e2e["stages"]
-    bench_launches = phase_bench(dev)["launches"]
+    bench = phase_bench(dev)
+    bench_launches = bench["launches"]
+    ent = phase_entry(dev, bench["frame_ms_p50"])
     b1_launches = {"stream": launches["cascaded_cfar2d"],
                    "stream --mesh": mesh["launches"]["cascaded_cfar2d"],
                    "e2e --mesh": e2e["mesh"]["launches"]["cascaded_cfar2d"],
@@ -1929,7 +2102,10 @@ def main() -> int:
                    **{k: v["cascaded_cfar2d"] for k, v in block["launches"].items()
                       if v["cascaded_cfar2d"]},
                    **{f"bench {k}": v["cascaded_cfar2d"] for k, v in bench_launches.items()
-                      if v["cascaded_cfar2d"]}}
+                      if v["cascaded_cfar2d"]},
+                   "entry": ent["launches"]["cascaded_cfar2d"],
+                   "dryrun_multichip(1)": ent["dryrun_launches"]["cascaded_cfar2d"],
+                   "dryrun_multichip(1) checks": ent["dryrun_check_launches"]["cascaded_cfar2d"]}
     b2_launches = {"stream": launches["doppler_rdm"],
                    "stream --mesh": mesh["launches"]["doppler_rdm"],
                    "e2e --mesh": e2e["mesh"]["launches"]["doppler_rdm"],
@@ -1941,14 +2117,18 @@ def main() -> int:
                    **{k: v["doppler_rdm"] for k, v in block["launches"].items()
                       if v["doppler_rdm"]},
                    **{f"bench {k}": v["doppler_rdm"] for k, v in bench_launches.items()
-                      if v["doppler_rdm"]}}
+                      if v["doppler_rdm"]},
+                   "entry": ent["launches"]["doppler_rdm"],
+                   "dryrun_multichip(1)": ent["dryrun_launches"]["doppler_rdm"],
+                   "dryrun_multichip(1) checks": ent["dryrun_check_launches"]["doppler_rdm"]}
     kernels = [
         {"name": "doppler_rdm", "route": "cuda",
          "source": "radar_signal_process_tpu_torch/kernels/csrc/rdm.cu",
          "replaces": "radar_signal_process_tpu/kernels/rdm_pallas.py:114",
          "launches": sum(b2_launches.values()), "launches_by_path": b2_launches,
          **rdm_stats, "max_abs_err": max(rdm_stats["max_abs_err"], g1["b2"]["max_abs_err"],
-                                         block["b2_block_max_abs_err"]),
+                                         block["b2_block_max_abs_err"], ent["b2_max_abs_err"]),
+         "entry": {k: ent[k] for k in ("ms", "headline_ms", "b2_max_abs_err")},
          "g1": g1["b2"], "sweep": sweep["b2"], "stages_max_abs_err": stages["b2_max_abs_err"],
          "block": {k: block[k] for k in ("window_ms", "launches_per_window", "peak_mb",
                                          "b2_block_batch", "b2_block_max_abs_err")}},

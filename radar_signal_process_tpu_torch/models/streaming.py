@@ -22,7 +22,7 @@ With ``mesh`` (the JAX ``models/streaming.py:98-174`` branch) every rank of
 the mesh runs the pipeline over the same capture: beams over ``dp`` (padded
 to it), slow time then range over ``sp``, the compressed previous frame
 carried between windows (``parallel.make_sharded_stream``), and the stacks
-gathered on rank 0, which extracts the detections.
+gathered on the mesh's first rank, which extracts the detections.
 """
 
 from __future__ import annotations
@@ -75,9 +75,9 @@ class StreamingPipeline:
     :func:`models.mtd_pipeline.make_frame_processor`.
 
     ``mesh`` (a ``DeviceMesh`` with axes ``("dp", "sp")`` on ``device``'s
-    type, ``parallel.make_mesh``) runs the sharded stream on every rank;
-    rank 0 yields the gathered stacks and the detections, the other ranks
-    the window index with ``None`` in their place.
+    type, ``parallel.make_mesh``) runs the sharded stream on every rank of
+    the mesh; its first rank yields the gathered stacks and the detections,
+    the other ranks the window index with ``None`` in their place.
 
     ``use_host_parallel`` selects the block path (module docstring); None
     means on a CPU ``device``, the JAX rule "on the CPU backend".  A block is
@@ -230,7 +230,7 @@ class StreamingPipeline:
         self._carry = {prev_idx + 1: pc_next}
         spec = ("dp", None, None, "sp")
         rdms, flags = gather_blocks(rdms, self._mesh, spec), gather_blocks(flags, self._mesh, spec)
-        if rdms is None:             # not rank 0
+        if rdms is None:             # not the mesh's first rank
             return None, None, None
         rdms, flags = rdms[: self._n_beams], flags[: self._n_beams]
         return rdms, flags, extract_detections(flags, rdms, self._max_detections)

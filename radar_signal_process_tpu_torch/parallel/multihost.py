@@ -28,14 +28,20 @@ def initialize_distributed(device_type: str = "cuda") -> Tuple[int, int]:
     from its environment; without it this process forms a group of one
     from an in-process store, as the JAX package runs single-process when no
     coordinator is set.  A group that already exists is joined as it is.
-    ``cuda`` without a card raises; TF32 is switched off on every rank.
+    ``cuda`` without a card, or with fewer cards than local ranks, raises;
+    TF32 is switched off on every rank.
     """
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     dev = resolve_device(device_type)
     backend = "gloo"
     if dev.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"local rank {local} has no card of its own: {torch.cuda.device_count()} "
+                "visible (NCCL takes one GPU per rank)")
+        torch.cuda.set_device(local)
         backend = "nccl"
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend, init_method="env://")

@@ -13,7 +13,8 @@ Complex tensors cross every collective as ``view_as_real`` float pairs: not
 every c10d path takes complex tensors, and the sum of the real and
 imaginary planes is the complex sum.  ``in_specs`` become
 :func:`local_block` (cut this rank's block out of a whole array) and
-``out_specs`` :func:`gather_blocks` (assemble the blocks on rank 0).
+``out_specs`` :func:`gather_blocks` (assemble the blocks on the mesh's
+first rank).
 
 Beams, slices and frames are pure data parallelism ("dp"); range is the
 sequence-parallel axis ("sp").  Pulse compression runs PRT-sharded (fast
@@ -94,34 +95,40 @@ def shard_batch(x: torch.Tensor, mesh: DeviceMesh, axis: str = "dp") -> torch.Te
 
 
 def gather_blocks(x: torch.Tensor, mesh: DeviceMesh, spec: Spec) -> Optional[torch.Tensor]:
-    """Every rank's block ``x`` (laid out by ``spec`` as in
-    :func:`local_block`) assembled into the whole array on rank 0; ``None``
-    on the other ranks.  Blocks of ranks that differ only along an axis
-    ``spec`` does not name are replicas; one of them is kept."""
-    world = dist.get_world_size()
-    if world == 1:
+    """Every mesh rank's block ``x`` (laid out by ``spec`` as in
+    :func:`local_block`) assembled into the whole array on the mesh's first
+    rank; ``None`` on its other ranks.  The gather runs over the mesh's own
+    ranks (``whole_group``, :func:`parallel.mesh.make_mesh`), so a mesh over
+    part of the world leaves the other ranks out.  Blocks of ranks that
+    differ only along an axis ``spec`` does not name are replicas; one of
+    them is kept."""
+    group = getattr(mesh, "whole_group", None)
+    if group is None:
+        raise TypeError("gather_blocks needs a mesh built by parallel.mesh.make_mesh")
+    ranks = mesh.mesh.cpu().numpy()          # global rank at each mesh coordinate
+    if ranks.size == 1:
         return x
     wire = _as_wire(x)
-    rank = dist.get_rank()
-    parts = [torch.empty_like(wire) for _ in range(world)] if rank == 0 else None
-    dist.gather(wire, parts, dst=0)
-    if rank != 0:
+    root = int(ranks.flat[0])
+    is_root = dist.get_rank() == root
+    parts = [torch.empty_like(wire) for _ in range(ranks.size)] if is_root else None
+    dist.gather(wire, parts, dst=root, group=group)
+    if not is_root:
         return None
+    by_rank = {dist.get_global_rank(group, i): part for i, part in enumerate(parts)}
     names = list(mesh.mesh_dim_names)
     shape = list(wire.shape)
     for dim, ax in enumerate(spec):
         if ax is not None:
             shape[dim] *= axis_size(mesh, ax)
     out = torch.empty(shape, dtype=wire.dtype, device=wire.device)
-    ranks = mesh.mesh.cpu().numpy()          # global rank at each mesh coordinate
     for coords in np.ndindex(*ranks.shape):
-        q = int(ranks[coords])
         idx = [slice(None)] * wire.ndim
         for dim, ax in enumerate(spec):
             if ax is not None:
                 c, n = coords[names.index(ax)], x.shape[dim]
                 idx[dim] = slice(c * n, (c + 1) * n)
-        out[tuple(idx)] = parts[q]
+        out[tuple(idx)] = by_rank[int(ranks[coords])]
     return _from_wire(out, x)
 
 

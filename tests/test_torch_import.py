@@ -468,10 +468,12 @@ def test_port_g1_readers_equal_the_jax_package(tmp_path, rng, native):
         assert g[3] == w[3] and g[3]["freq_index"] == (3, 7, 1)[idx - 1]
 
 
-@pytest.mark.parametrize("entry", ["make_detector", "make_frame_processor", "G0Chain"])
+@pytest.mark.parametrize("entry", ["make_detector", "make_frame_processor", "G0Chain", "entry"])
 def test_entry_points_default_to_the_card(entry):
     """Without a card the entry points' default device raises (nothing moves
-    to the CPU silently); asked for the CPU, they build there."""
+    to the CPU silently); asked for the CPU, they build there (``entry``:
+    its example window)."""
+    from radar_signal_process_tpu_torch import entry as tentry
     from radar_signal_process_tpu_torch.config import G0_PROFILE, G2_PROFILE
     from radar_signal_process_tpu_torch.models.detect import make_detector
     from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
@@ -481,8 +483,12 @@ def test_entry_points_default_to_the_card(entry):
                                 segment_points=(24, 40, 64), n_channels=2, n_beams=2)
     build = {"make_detector": lambda **kw: make_detector(small, **kw),
              "make_frame_processor": lambda **kw: make_frame_processor(small, 2, **kw),
-             "G0Chain": lambda **kw: G0Chain(G0_PROFILE, **kw)}[entry]
-    assert next(iter(build(device="cpu").buffers())).device.type == "cpu"
+             "G0Chain": lambda **kw: G0Chain(G0_PROFILE, **kw),
+             "entry": lambda **kw: tentry.entry(**kw)[1][0]}[entry]
+    built = build(device="cpu")
+    if not isinstance(built, torch.Tensor):
+        built = next(iter(built.buffers()))
+    assert built.device.type == "cpu"
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; the default would build there")
     with pytest.raises(RuntimeError, match="is_available"):
