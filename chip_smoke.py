@@ -15,7 +15,10 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    cuFFT form) at G2 geometry, 52 x 332 x 3404, f32 tolerance; both the
    kernel's and the plain version's max error against the product taken in
    complex128 on the card, as a share of the peak (the kernel's at most
-   1e-5); its bound (3xTF32 operations at the TF32 peak);
+   1e-5); its bound (3xTF32 operations at the TF32 peak), its
+   FP32-equivalent TFLOP/s and share of the bound, and the time of the one
+   PyTorch call of the complex product (``torch.matmul``, its
+   ``library_ms``, which the port never calls);
 4. B1      — the cascaded-CFAR kernel against its plain version, bit for bit,
    on the B2 output (three G2 segments, after the divisor-20 re-notch) and
    on a crafted RDM (notched rows, ties, edge columns, a cell exactly on the
@@ -287,6 +290,11 @@ def phase_rdm(dev) -> tuple[dict, torch.Tensor]:
     def run_fft():
         return zero_velocity_notch(doppler_process(pc, window), divisor=prof.mtd.notch_divisor)
 
+    w_c = torch.complex(params.dft_re, params.dft_im)
+
+    def run_library():  # the one PyTorch call of the complex product (no abs, no notch)
+        return torch.matmul(w_c, pc)
+
     got, want, fft = run_kernel(), run_plain(), run_fft()
     torch.cuda.synchronize()
     if got.shape != want.shape or not torch.isfinite(got).all():
@@ -308,12 +316,13 @@ def phase_rdm(dev) -> tuple[dict, torch.Tensor]:
           f"{'ok' if err_c128 <= C128_PEAK else 'FAIL'}")
     if err_c128 > C128_PEAK:
         fail("B2: kernel error against the complex128 product above 1e-5 of the peak")
-    ms = cuda_ms({"kernel": run_kernel, "plain": run_plain, "cufft": run_fft})
+    ms = cuda_ms({"kernel": run_kernel, "plain": run_plain, "cufft": run_fft,
+                  "library": run_library})
     print(f"B2 doppler_rdm {shape}: max_abs_err {max_abs:.3e} max_rel_err "
           f"{max_rel:.3e} vs plain (rtol {RDM_RTOL}, atol {RDM_ATOL}) -> "
           f"{'ok' if ok else 'FAIL'}; vs cuFFT -> {'ok' if ok_fft else 'FAIL'}; "
           f"median ms kernel {ms['kernel']:.3f} plain-matmul {ms['plain']:.3f} "
-          f"cufft {ms['cufft']:.3f}")
+          f"cufft {ms['cufft']:.3f} library (complex matmul) {ms['library']:.3f}")
     if not (ok and ok_fft):
         fail("B2: kernel disagrees with its plain version")
     c = cost_model.rdm_former_cost(G2_BATCH, G2_PULSES, G2_RANGE)
@@ -322,9 +331,14 @@ def phase_rdm(dev) -> tuple[dict, torch.Tensor]:
           f"{c['flops']:.3e} TF32 flops at 495 TFLOP/s; {c['hbm_bytes'] / 1e6:.1f} MB at "
           f"3.35 TB/s; the FP32 route's bound "
           f"{flops / cost_model.H100_FP32_FLOPS * 1e3:.3f} ms at 67 TFLOP/s) | {SMI['line']}")
-    del want, fft, pc
+    tflops = flops / ms["kernel"] / 1e9
+    print(f"B2 rate: {tflops:.1f} FP32-equivalent TFLOP/s ({flops:.3e} flops of the complex "
+          f"product in {ms['kernel']:.3f} ms), {100 * bound / ms['kernel']:.1f}% of the bound "
+          f"| {SMI['line']}")
+    del want, fft, pc, w_c
     return {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": ms["plain"],
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": ms["library"],
+            "fp32_eq_tflops": tflops,
             "cufft_ms": ms["cufft"], "error_vs_c128": err_c128,
             "plain_error_vs_c128": plain_c128}, got
 
@@ -1372,8 +1386,11 @@ def b2_report(label: str, pc: torch.Tensor, w_re, w_im, notch) -> dict:
     exact[..., notch[0] : notch[1] + 1, :] = 0.0
     err_c128, plain_c128 = c128_error(got, exact), c128_error(want, exact)
     del exact, want
+    w_c = torch.complex(w_re, w_im)
     ms = cuda_ms({"kernel": lambda: doppler_rdm(pc, w_re, w_im, notch),
-                  "plain": lambda: doppler_rdm_plain(pc, w_re, w_im, notch)})
+                  "plain": lambda: doppler_rdm_plain(pc, w_re, w_im, notch),
+                  "library": lambda: torch.matmul(w_c, pc)})
+    del w_c
     n_fft, n = w_re.shape
     c = cost_model.rdm_former_cost(pc.numel() // (n * pc.shape[-1]), n, pc.shape[-1], n_fft)
     bound, bound_by = c["sol_s"] * 1e3, c["bound_by"]
@@ -1382,11 +1399,12 @@ def b2_report(label: str, pc: torch.Tensor, w_re, w_im, notch) -> dict:
           f"{RDM_RTOL}*|want|) -> {'ok' if ok else 'FAIL'}; vs complex128 product: max error "
           f"/ peak kernel {err_c128:.3e} plain {plain_c128:.3e} (kernel <= {C128_PEAK}) -> "
           f"{'ok' if err_c128 <= C128_PEAK else 'FAIL'}; median ms kernel {ms['kernel']:.3f} "
-          f"plain {ms['plain']:.3f}; bound {bound:.3f} ms by {bound_by} | {SMI['line']}")
+          f"plain {ms['plain']:.3f} library (complex matmul) {ms['library']:.3f}; bound "
+          f"{bound:.3f} ms by {bound_by} | {SMI['line']}")
     if not (ok and err_c128 <= C128_PEAK):
         fail(f"B2 [{label}]: kernel disagrees with its plain version or the complex128 product")
     return {"max_abs_err": max_abs, "ms": ms["kernel"], "plain_ms": ms["plain"],
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": ms["library"],
             "error_vs_c128": err_c128, "plain_error_vs_c128": plain_c128,
             "shape": list(pc.shape)}
 

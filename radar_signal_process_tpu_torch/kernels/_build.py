@@ -37,7 +37,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points: name -> argument types; each returns an int (a cudaError_t
 # for the launches, a byte count for the shared-memory query)
 _SIGNATURES = {
-    "rsp_doppler_rdm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "rsp_doppler_rdm": (_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "rsp_doppler_rdm_split_w": (_P, _P, _P, _L, _I, _I, _P),
+    "rsp_doppler_rdm_smem_bytes": (),
     "rsp_cascaded_cfar": (_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I, _I, _I, _I,
                           _I, _F, _I, _I, _P),
     "rsp_cascaded_cfar_smem_bytes": (_I, _I, _I, _I),

@@ -117,8 +117,9 @@ def _planes(window, device, n_fft=None, shift=True):
     "shape,n_fft,shift,notch",
     [((3, 332, 700), None, True, (163, 167)), ((2, 100, 65), None, True, None),
      ((1, 48, 130), 64, False, None), ((5, 17, 3), None, True, (7, 9)),
-     ((52, 332, 3404), None, True, (163, 167))],
-    ids=["g2-rows", "ragged", "zero-padded", "tiny", "g2-full"],
+     ((52, 332, 3404), None, True, (163, 167)), ((3, 100, 301), 128, False, (60, 62)),
+     ((65535, 17, 3), None, True, (7, 9))],
+    ids=["g2-rows", "ragged", "zero-padded", "tiny", "g2-full", "ragged-k-padded", "batch-max"],
 )
 def test_doppler_rdm_kernel_matches_plain(rng, cuda_device, shape, n_fft, shift, notch):
     pc = _pc(rng, shape, cuda_device)
@@ -157,6 +158,77 @@ def test_doppler_rdm_kernel_large_dynamic_range(rng, cuda_device):
     assert peak > 1e6
     torch.testing.assert_close(got, want, rtol=RTOL, atol=B3_PEAK_ATOL * peak)
     assert _c128_error(got, exact) <= C128_PEAK
+
+
+@pytest.mark.gpu
+def test_doppler_rdm_kernel_long_chain_target(rng, cuda_device):
+    """G1's K = 1536 with one target 1e5 above unit noise: the long chain the
+    16-pulse partials exist for, within 1e-5 of the peak of the complex128
+    product and the peak-scaled RDM tolerance of the plain version."""
+    shape = (2, 1536, 868)
+    pc = _pc(rng, shape, cuda_device)
+    pulses = torch.arange(1536, device=cuda_device)
+    pc[0, :, 433] += 1e5 * torch.exp(2j * torch.pi * 0.2503 * pulses).to(torch.complex64)
+    w_re, w_im = _planes(make_window("kaiser", 1536), cuda_device)
+    notch = (757, 777)
+    got = krdm.doppler_rdm(pc, w_re, w_im, notch)
+    want = krdm.doppler_rdm_plain(pc, w_re, w_im, notch)
+    exact = torch.matmul(torch.complex(w_re, w_im).to(torch.complex128),
+                         pc.to(torch.complex128)).abs()
+    exact[:, notch[0] : notch[1] + 1] = 0.0
+    peak = float(want.abs().max())
+    assert peak > 1e7
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=B3_PEAK_ATOL * peak)
+    assert _c128_error(got, exact) <= C128_PEAK
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fft,n", [(332, 332), (100, 100), (64, 48), (17, 17), (1536, 1536)],
+                         ids=["g2", "ragged", "zero-padded", "tiny", "g1"])
+def test_wgmma_b_planes_kernel_bit_equal(rng, cuda_device, n_fft, n):
+    """B2's W split on the card: the planes its main kernel reads, bit for bit
+    those of the plain version (padding included)."""
+    w_re = torch.from_numpy(rng.standard_normal((n_fft, n)).astype(np.float32)).to(cuda_device)
+    w_im = torch.from_numpy(rng.standard_normal((n_fft, n)).astype(np.float32)).to(cuda_device)
+    got = krdm.wgmma_b_planes(w_re, w_im)
+    want = krdm.wgmma_b_planes_plain(w_re, w_im)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _sass_functions(lib_path) -> dict:
+    """``cuobjdump -sass`` of the kernel library: mangled name -> SASS text."""
+    import shutil
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or (CUDA_HOME and f"{CUDA_HOME}/bin/cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name:
+            funcs[name].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+@pytest.mark.gpu
+def test_doppler_rdm_kernel_sass_is_wgmma_and_tma(cuda_device):
+    """The built B2 main kernel runs its products as wgmma (HGMMA, no mma.sync
+    HMMA) and takes W by a TMA-engine copy (UBLKCP, or UTMALDG for a tensor
+    map)."""
+    from radar_signal_process_tpu_torch.kernels import _build
+
+    _build.library()
+    funcs = _sass_functions(_build.library_path())
+    b2 = [body for name, body in funcs.items() if "doppler_rdm_kernel" in name]
+    assert len(b2) == 1, sorted(funcs)
+    assert "HGMMA" in b2[0] and "HMMA" not in b2[0]
+    assert "UBLKCP" in b2[0] or "UTMALDG" in b2[0]
 
 
 @pytest.mark.gpu

@@ -250,8 +250,10 @@ def test_library_path_is_content_addressed():
     assert path.name.startswith("librsp_kernels-") and path.suffix == ".so"
     assert path == _build.library_path()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["cfar.cu", "pc_rdm.cu", "rdm.cu"]
-    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["cgemm_3xtf32.cuh"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["cgemm_3xtf32.cuh",
+                                                                 "sm90_async.cuh"]
     assert _build.CSRC / "cgemm_3xtf32.cuh" in _build._sources()
+    assert _build.CSRC / "sm90_async.cuh" in _build._sources()
 
 
 def test_library_path_follows_header_edits(tmp_path, monkeypatch):
@@ -267,12 +269,14 @@ def test_library_path_follows_header_edits(tmp_path, monkeypatch):
 
 
 # ------------------------------------------------- the 3xTF32 error model
-# csrc/cgemm_3xtf32.cuh runs B2's and B3's complex products on the tensor
-# cores: each operand split as hi = rna_tf32(a), lo = rna_tf32(a - hi),
-# three TF32 products per real product (lo.lo dropped), partial sums of
-# `chunk` K-terms rounded into an FP32 accumulator.  Emulated here with the
-# tensor core's in-chain accumulation taken as exact and the partial then
-# truncated toward zero, the pessimistic reading of its rounding.
+# B2 (csrc/rdm.cu, wgmma) and B3 (csrc/cgemm_3xtf32.cuh, mma.sync) run
+# their complex products on the tensor cores: each operand split as
+# hi = rna_tf32(a), lo = rna_tf32(a - hi), three TF32 products per real
+# product (lo.lo dropped), partial sums rounded into an FP32 accumulator.
+# B3's form is emulated by _cgemm_3xtf32 (the in-chain accumulation of a
+# `chunk` taken as exact, the partial then truncated toward zero), B2's by
+# _wgmma_3xtf32_rdm (truncated after every product): the pessimistic
+# readings of the tensor core's rounding.
 def _tf32_rna(x: np.ndarray) -> np.ndarray:
     """rna_tf32, the rounding of cvt.rna.tf32.f32: to nearest, ties away from
     zero, to 10 explicit mantissa bits (the low 13 bits of the float32 pattern
@@ -339,17 +343,43 @@ def _with_target(x, col, freq):
 _3XTF32_OVER_F32 = 6.0
 
 
+def _wgmma_3xtf32_rdm(w: np.ndarray, x: np.ndarray, period: int = krdm.STAGE_PULSES) -> np.ndarray:
+    """|W X| as csrc/rdm.cu forms it: D^T = Xr^T B_r + Xi^T B_i with
+    B_r = [Wr; Wi]^T, B_i = [-Wi; Wr]^T, each operand split into TF32 hi/lo,
+    six TF32 products per 8-pulse step (the kernel's order, lo.lo dropped),
+    each product's 8-term sum added into the partial with the tensor core's
+    truncation (the pessimistic reading: every wgmma truncates), the partial
+    restarted every `period` pulses and added into FP32 totals rounded to
+    nearest."""
+    n_fft, k = w.shape
+    (brh, brl), (bih, bil) = (_split_tf32(np.concatenate(p).astype(np.float32)) for p in (
+        (w.real, w.imag), (-w.imag, w.real)))
+    (xrh, xrl), (xih, xil) = _split_tf32(x.real), _split_tf32(x.imag)
+    terms = ((xrl, brh), (xrh, brl), (xil, bih), (xih, bil), (xrh, brh), (xih, bih))
+    acc = np.zeros((x.shape[1], 2 * n_fft), np.float32)
+    for k0 in range(0, k, period):
+        part = np.zeros_like(acc, dtype=np.float64)
+        for s in range(k0, min(k0 + period, k), 8):
+            ks = slice(s, s + 8)
+            for xa, b in terms:
+                prod = xa[ks].T.astype(np.float64) @ b[:, ks].T.astype(np.float64)
+                part = _to_f32_toward_zero(part + prod).astype(np.float64)
+        acc += part.astype(np.float32)
+    return np.abs(acc[:, :n_fft] + 1j * acc[:, n_fft:].astype(np.float64)).T
+
+
 @pytest.mark.parametrize("target", [False, True], ids=["noise", "target-1e5"])
 def test_3xtf32_error_model_b2(rng, target):
-    """B2 at a G2-like 332 x 64 slice (8-term partials, as rdm.cu flushes):
-    inside the card tolerances against float64 and near float32's error."""
+    """B2 at a G2-like 332 x 64 slice (the transposed real wgmma form, 16-pulse
+    partials, as rdm.cu flushes): inside the card tolerances against float64
+    and near float32's error."""
     x = _c64(rng, (332, 64))
     if target:
         x = _with_target(x, 21, 0.137)
     w_re, w_im = (p.numpy() for p in _planes(make_window("kaiser", 332, 8.0)))
     w = (w_re + 1j * w_im).astype(np.complex64)
     exact = np.abs(w.astype(np.complex128) @ x.astype(np.complex128))
-    got = np.abs(_cgemm_3xtf32(w, x, chunk=8))
+    got = _wgmma_3xtf32_rdm(w, x)
     f32 = np.abs(w @ x)
     peak = exact.max()
     err, f32_err = np.abs(got - exact).max(), np.abs(f32 - exact).max()
@@ -357,6 +387,93 @@ def test_3xtf32_error_model_b2(rng, target):
     # the B2 card tolerance; with the target, its peak-scaled form (test_torch_gpu.py)
     np.testing.assert_allclose(got, f32, rtol=RTOL, atol=2e-5 * peak if target else ATOL)
     assert err <= _3XTF32_OVER_F32 * f32_err
+
+
+@pytest.mark.parametrize("target", [False, True], ids=["noise", "target-1e5"])
+@pytest.mark.parametrize("k,rows,freq", [(332, 1, 0.137), (1536, 8, 0.2503)], ids=["k332", "k1536"])
+def test_3xtf32_error_model_b2_wgmma_chain(rng, k, rows, freq, target):
+    """The flush period against the long chain: at K = 332 (G2) and 1536 (G1,
+    every 8th Doppler row; the target peaks in a kept row), with noise and
+    with a target 1e5 above it, B2's 16-pulse partials stay within 1e-5 of
+    the peak of the complex128 product."""
+    x = _c64(rng, (k, 48))
+    if target:
+        x = _with_target(x, 17, freq)
+    w_re, w_im = (p.numpy() for p in _planes(make_window("kaiser", k, 8.0)))
+    w = (w_re + 1j * w_im).astype(np.complex64)[::rows]
+    exact = np.abs(w.astype(np.complex128) @ x.astype(np.complex128))
+    got = _wgmma_3xtf32_rdm(w, x)
+    peak = exact.max()
+    assert np.argmax(exact) // x.shape[1] == np.argmax(got) // x.shape[1]
+    assert np.abs(got - exact).max() <= 1e-5 * peak
+    if k == 1536:  # what the flush is for: one truncating chain over G1's K is not
+        assert np.abs(_wgmma_3xtf32_rdm(w, x, period=k) - exact).max() > 1e-5 * peak
+
+
+# the W split of the wgmma form: shapes (n_fft, n) of the card's B2 cases
+SPLIT_SHAPES = {"g2": (332, 332), "ragged": (100, 100), "zero-padded": (64, 48),
+                "tiny": (17, 17), "g1-rows": (200, 1536)}
+
+
+def _detile(planes: torch.Tensor) -> np.ndarray:
+    """wgmma_b_planes' image -> (4, tiles * 2 TILE_ROWS, stages * STAGE_PULSES)."""
+    t, s = planes.shape[:2]
+    p = planes.permute(2, 0, 3, 5, 1, 4, 6).reshape(4, t * 2 * krdm.TILE_ROWS,
+                                                    s * krdm.STAGE_PULSES)
+    return p.numpy()
+
+
+@pytest.mark.parametrize("case", list(SPLIT_SHAPES))
+def test_wgmma_b_planes_recompose_w(rng, case):
+    """The W split, de-tiled: each plane is bit for bit the rna split of
+    +-Wr / +-Wi in the transposed real form's rows, zero in the padding of
+    rows and pulses, and hi + lo recomposes W to within 2^-22 of each value."""
+    n_fft, n = SPLIT_SHAPES[case]
+    w_re = rng.standard_normal((n_fft, n)).astype(np.float32)
+    w_im = rng.standard_normal((n_fft, n)).astype(np.float32)
+    planes = krdm.wgmma_b_planes(torch.from_numpy(w_re), torch.from_numpy(w_im))
+    tiles, stages = -(-n_fft // krdm.TILE_ROWS), -(-n // krdm.STAGE_PULSES)
+    assert tuple(planes.shape) == (tiles, stages, 4, 2 * krdm.TILE_ROWS // 8,
+                                   krdm.STAGE_PULSES // 4, 8, 4)
+    got = _detile(planes).reshape(4, tiles, 2, krdm.TILE_ROWS, stages * krdm.STAGE_PULSES)
+
+    def padded(w):
+        out = np.zeros((tiles * krdm.TILE_ROWS, stages * krdm.STAGE_PULSES), np.float32)
+        out[:n_fft, :n] = w
+        return out.reshape(tiles, krdm.TILE_ROWS, -1)
+
+    b_r = np.stack([padded(w_re), padded(w_im)], axis=1)   # (tiles, re/im half, rows, p)
+    b_i = np.stack([padded(-w_im), padded(w_re)], axis=1)
+    for hi, lo, b in ((got[0], got[1], b_r), (got[2], got[3], b_i)):
+        want_hi, want_lo = _split_tf32(b)
+        np.testing.assert_array_equal(hi.view(np.uint32), want_hi.view(np.uint32))
+        np.testing.assert_array_equal(lo.view(np.uint32), want_lo.view(np.uint32))
+        assert (np.abs(b - hi - lo) <= np.abs(b) * 2.0**-22).all()
+
+
+@pytest.mark.parametrize("shape,n_fft,shift,notch",
+                         [((2, 100, 65), None, True, (48, 51)), ((5, 17, 3), None, True, (7, 9)),
+                          ((1, 48, 130), 64, False, (0, -1))],
+                         ids=["ragged", "tiny", "zero-padded"])
+def test_wgmma_b_planes_product_matches_plain(rng, shape, n_fft, shift, notch):
+    """A float64 product of X^T with the split planes (hi + lo), in the
+    transposed real form, reproduces doppler_rdm_plain."""
+    pc = _pc(rng, shape)
+    w_re, w_im = _planes(make_window("kaiser", shape[-2]), n_fft, shift)
+    planes = _detile(krdm.wgmma_b_planes(w_re, w_im)).astype(np.float64)
+    b_r, b_i = planes[0] + planes[1], planes[2] + planes[3]
+    nf, n = w_re.shape
+    x = np.zeros(shape[:-2] + (planes.shape[-1], shape[-1]), np.complex64)
+    x[..., :n, :] = pc
+    dt = (np.swapaxes(x.real, -1, -2).astype(np.float64) @ b_r.T
+          + np.swapaxes(x.imag, -1, -2).astype(np.float64) @ b_i.T)   # (..., nr, rows)
+    dt = dt.reshape(dt.shape[:-1] + (-1, 2, krdm.TILE_ROWS))
+    mag = np.abs(dt[..., 0, :] + 1j * dt[..., 1, :]).reshape(dt.shape[:-3] + (-1,))
+    got = np.swapaxes(mag, -1, -2)[..., :nf, :]
+    if notch[1] >= notch[0]:
+        got[..., notch[0] : notch[1] + 1, :] = 0.0
+    want = krdm.doppler_rdm_plain(torch.from_numpy(pc), w_re, w_im, notch).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("target", [False, True], ids=["noise", "target-1e5"])
