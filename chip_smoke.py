@@ -20,13 +20,19 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    PyTorch call of the complex product (``torch.matmul``, its
    ``library_ms``, which the port never calls);
 4. B1      — the cascaded-CFAR kernel against its plain version, bit for bit,
-   on the B2 output (three G2 segments, after the divisor-20 re-notch) and
-   on a crafted RDM (notched rows, ties, edge columns, a cell exactly on the
-   threshold, no range pass, E=2, smallest-of); then, timed in turns with
-   the plain version, its time per call and its device time (a CUDA graph of
-   20 calls), bytes moved, GB/s, the share of the 3.35 TB/s byte floor and
-   the launches of one call (one for all segments), beside the card's name
-   and power limit;
+   on the B2 output (three G2 segments) with the divisor-20 re-notch fused
+   into its load (``zero_rows`` (148, 183), the main path's form) and as a
+   product before it, and on crafted RDMs (notched rows, ties, edge columns,
+   a cell exactly on the threshold, no range pass, E=2, smallest-of, the
+   notch rows negative in memory and fused); its division by 5 against
+   IEEE division on all 2^32 float32 bit patterns; ``detect_rdm`` on the
+   window under ``torch.cuda.set_sync_debug_mode("error")`` (no host copy,
+   no stream synchronisation); then, fused and as a product, timed in turns
+   with the plain version, its time per call, its device time (a CUDA graph
+   of 20 calls) and its enqueue time, bytes moved, GB/s, the share of the
+   3.35 TB/s byte floor (the fused form's without the notched rows) and the
+   launches of one call (one for all segments), beside the card's name and
+   power limit;
 5. slice   — writes a seeded 4-frame 16-channel G2 capture with one point
    target and runs ``radar_signal_process_tpu_torch.cli stream`` over it at
    full width (13 beams, win_size 4, 3 windows) with the CLI's default
@@ -109,8 +115,9 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    every workload (the G2 headline window, the block form, the stages, G0,
    ingest, the e2e stream windowed and in blocks, the device's busy share)
    with its checks, B1 and B2 held to their plain versions on the first
-   window; its JSON line is printed as it stands and its launches per
-   workload join the ``kernels`` line;
+   window, B1's flags on the headline window numbering 1,945,427 (the
+   re-notch band's self-flagged rows, ROADMAP C8); its JSON line is printed
+   as it stands and its launches per workload join the ``kernels`` line;
 17. entry  — ``radar_signal_process_tpu_torch.entry``: ``entry()``'s forward
    step on its example window at full G2 width (13 x 664 x 3404 complex64
    from ``default_rng(0)``), B2 and B1 once each; its RDMs against B2's
@@ -166,6 +173,7 @@ SWEEP_REFERENCE = {
 }
 SWEEP_FA_TOL = 1e-4               # the reference's FA rates carry 3 digits
 REPS = 10
+HEADLINE_FLAGS = 1945427          # B1's flags on the bench's headline window (ROADMAP C8)
 SMI = {"line": ""}                # nvidia-smi name and power limit of the card
 
 
@@ -389,62 +397,98 @@ def crafted_rdm(shape, rng, n_clutter: int, segments, unshifted: bool = False) -
     return rdm
 
 
-def b1_report(label: str, x: torch.Tensor, cfg, n_clutter: int, kernel, plain) -> dict:
+def enqueue_ms(fn, n: int = 20) -> float:
+    """Host ms a call of ``fn`` takes to enqueue (no synchronisation inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
+def b1_report(label: str, x: torch.Tensor, cfg, n_clutter: int, kernel, plain,
+              notched_rows: int = 0) -> dict:
     """Time B1 and its plain version in turns, count the launches of one
     call, and hold the time against the byte floor: the used rows of the
-    f32 RDM read once, both byte-wide flag maps written once."""
+    f32 RDM read once (less ``notched_rows`` that the fused re-notch does
+    not read), both byte-wide flag maps written once."""
     from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
 
     nv, nr = x.shape[-2], x.shape[-1]
-    c = cost_model.cascaded_cfar_cost(x.numel() // (nv * nr), nv, nr, n_clutter, cfg)
+    c = cost_model.cascaded_cfar_cost(x.numel() // (nv * nr), nv, nr, n_clutter, cfg,
+                                      notched_rows=notched_rows)
     n_bytes, bound, bound_by = c["hbm_bytes"], c["sol_s"] * 1e3, c["bound_by"]
     before = cascaded_cfar2d.launches
     kernel()
     per_call = cascaded_cfar2d.launches - before
     ms = cuda_ms({"kernel": kernel, "plain": plain})
     dev_ms = graph_ms(kernel)
+    host_ms = enqueue_ms(kernel)
     print(f"B1 timing [{label}] {tuple(x.shape)}: kernel {ms['kernel']:.4f} ms per call "
           f"(CUDA events around the call), {dev_ms:.4f} ms device time (CUDA graph of 20 "
-          f"calls); plain {ms['plain']:.4f} ms; {n_bytes / 1e6:.2f} MB moved -> "
-          f"{n_bytes / dev_ms / 1e6:.1f} GB/s device, {n_bytes / ms['kernel'] / 1e6:.1f} GB/s "
-          f"per call; byte floor {bound:.4f} ms at 3.35 TB/s ({bound_by}) = "
-          f"{100 * bound / dev_ms:.1f}% device, {100 * bound / ms['kernel']:.1f}% per call; "
-          f"{per_call} launch(es) per call | {SMI['line']}")
+          f"calls), {host_ms:.4f} ms to enqueue (host clock); plain {ms['plain']:.4f} ms; "
+          f"{n_bytes / 1e6:.2f} MB moved -> {n_bytes / dev_ms / 1e6:.1f} GB/s device, "
+          f"{n_bytes / ms['kernel'] / 1e6:.1f} GB/s per call; byte floor {bound:.4f} ms at "
+          f"3.35 TB/s ({bound_by}) = {100 * bound / dev_ms:.1f}% device, "
+          f"{100 * bound / ms['kernel']:.1f}% per call; {per_call} launch(es) per call | "
+          f"{SMI['line']}")
     if per_call != 1:
         fail(f"B1 [{label}]: {per_call} launches in one call (want 1)")
     return {"ms": ms["kernel"], "plain_ms": ms["plain"], "device_ms": dev_ms,
-            "bound_ms": bound, "bound_by": bound_by, "bytes": n_bytes,
+            "enqueue_ms": host_ms, "bound_ms": bound, "bound_by": bound_by, "bytes": n_bytes,
             "launches_per_call": per_call}
 
 
 def phase_cfar(dev, rdm_b2: torch.Tensor) -> dict:
+    """B1 on the B2 output with the CFAR stage's re-notch fused into its load
+    (``zero_rows``, the main path's form) and as a product before it, and on
+    crafted RDMs, each bit for bit against the plain version; the exhaustive
+    check of its division by 5; ``detect_rdm`` enqueued with no stream
+    synchronisation; its times."""
     import dataclasses
 
     from radar_signal_process_tpu_torch.config import G2_PROFILE as prof
-    from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
-    from radar_signal_process_tpu_torch.models.detect import clutter_cells, renotch_mask
-    from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.models.detect import (
+        clutter_cells,
+        detect_rdm,
+        renotch_mask,
+        renotch_rows,
+    )
 
     segments = prof.cfar_segments
     n_clutter = clutter_cells(prof, G2_PULSES)
+    zero = renotch_rows(prof, G2_PULSES, n_clutter, 20)
+    if zero != (148, 183):
+        fail(f"B1: the G2 re-notch rows are {zero}, not (148, 183)")
     mask = torch.from_numpy(renotch_mask(prof, G2_PULSES, n_clutter, 20)).to(dev)
     rdm_n = (rdm_b2 * mask[:, None]).contiguous()
     cfg = prof.cfar
-    cases = [("B2 output, renotch /20", rdm_n, cfg)]
+    cases = [("B2 output, renotch /20 fused", rdm_b2, cfg, zero),
+             ("B2 output, renotch /20 as a product", rdm_n, cfg, None)]
     crafted = torch.from_numpy(
         crafted_rdm((4, G2_PULSES, G2_RANGE), np.random.default_rng(SEED + 1),
                     n_clutter, segments)
     ).to(dev)
+    negative = crafted.clone()
+    negative[:, zero[0] : zero[1]] = -crafted[:, 20 : 20 + zero[1] - zero[0]]
     cases += [
-        ("crafted", crafted, cfg),
-        ("crafted range_detect=False", crafted, dataclasses.replace(cfg, range_detect=False)),
-        ("crafted E=2", crafted, dataclasses.replace(cfg, range_extend_cells=2)),
-        ("crafted SO", crafted, dataclasses.replace(cfg, method=1)),
+        ("crafted", crafted, cfg, None),
+        ("crafted range_detect=False", crafted, dataclasses.replace(cfg, range_detect=False),
+         None),
+        ("crafted E=2", crafted, dataclasses.replace(cfg, range_extend_cells=2), None),
+        ("crafted SO", crafted, dataclasses.replace(cfg, method=1), None),
+        ("crafted, notch rows negative, fused", negative, cfg, zero),
+        ("crafted, notch rows negative, fused, SO", negative, dataclasses.replace(cfg, method=1),
+         zero),
     ]
     max_abs, mismatched = 0.0, 0
-    for label, x, c in cases:
-        kf, kv = cascaded_cfar2d(x, c, n_clutter, segments)
-        pf, pv = segmented_cfar(x, segments, c, n_clutter)
+    for label, x, c, z in cases:
+        kf, kv = kcfar.cascaded_cfar2d(x, c, n_clutter, segments, zero_rows=z)
+        pf, pv = kcfar.cascaded_cfar2d_plain(x, c, n_clutter, segments, z)
         torch.cuda.synchronize()
         diff = torch.cat([(kf != pf).flatten(), (kv != pv).flatten()])
         n_diff = int(diff.sum())
@@ -456,11 +500,45 @@ def phase_cfar(dev, rdm_b2: torch.Tensor) -> dict:
               f"{'bit-identical' if n_diff == 0 else 'MISMATCH'}")
     if mismatched:
         fail(f"B1: {mismatched} kernel flags differ from the plain version")
-    stats = b1_report("G2, 3 segments", rdm_n, cfg, n_clutter,
-                      lambda: cascaded_cfar2d(rdm_n, cfg, n_clutter, segments),
-                      lambda: segmented_cfar(rdm_n, segments, cfg, n_clutter))
+    del crafted, negative
+
+    t0 = time.perf_counter()
+    div_bad = kcfar.division_mismatches(dev)
+    print(f"B1 division by 5 (FMA sequence) against __fdiv_rn(x, 5.0f) on all 2^32 float32 "
+          f"bit patterns: {div_bad} differ ({time.perf_counter() - t0:.3f} s) -> "
+          f"{'bit-identical' if div_bad == 0 else 'MISMATCH'}")
+    if div_bad:
+        fail(f"B1: its division by 5 differs from IEEE division on {div_bad} inputs")
+
+    # detect_rdm on the window copies nothing from the host: no stream sync
+    detect_rdm(rdm_b2, prof, n_clutter)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flags_sync, _ = detect_rdm(rdm_b2, prof, n_clutter)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pf, _ = kcfar.cascaded_cfar2d_plain(rdm_b2, cfg, n_clutter, segments, zero)
+    if not torch.equal(flags_sync, pf):
+        fail("B1: detect_rdm's flags differ from the plain version")
+    print("B1 detect_rdm on the G2 window under torch.cuda.set_sync_debug_mode('error'): "
+          "enqueued with no stream synchronisation, flags equal to the plain version")
+
+    stats = b1_report("G2, 3 segments, re-notch fused", rdm_b2, cfg, n_clutter,
+                      lambda: kcfar.cascaded_cfar2d(rdm_b2, cfg, n_clutter, segments,
+                                                    zero_rows=zero),
+                      lambda: kcfar.cascaded_cfar2d_plain(rdm_b2, cfg, n_clutter, segments,
+                                                          zero),
+                      notched_rows=zero[1] - zero[0])
+    unfused = b1_report("G2, 3 segments, re-notch product then B1", rdm_b2, cfg, n_clutter,
+                        lambda: kcfar.cascaded_cfar2d(rdm_b2 * mask[:, None], cfg, n_clutter,
+                                                      segments),
+                        lambda: kcfar.cascaded_cfar2d_plain(rdm_b2, cfg, n_clutter, segments,
+                                                            zero))
     return {"max_abs_err": max_abs, "mismatched_flags": mismatched, **stats,
-            "library_ms": None}
+            "library_ms": None, "division_mismatches": div_bad,
+            "unfused_stage": {k: unfused[k] for k in ("ms", "device_ms", "enqueue_ms",
+                                                      "bound_ms")}}
 
 
 def write_scene(root: str, prof, rng) -> tuple[str, int, int, int]:
@@ -996,19 +1074,24 @@ def phase_mesh(dev, cap: str, coeff_path: str, beam: int, row: int, col: int,
     whole_f, whole_v = kcfar.cascaded_cfar2d(rdm, cfg, n_clutter, segments)
     if not (torch.equal(whole_f, plain_f) and torch.equal(whole_v, plain_v)):
         fail("mesh: B1 on the whole G2 window differs from its plain version")
-    ext = torch.cat([rdm[..., -h:], rdm, rdm[..., :h]], dim=-1)
     route = {}
     for sp in (2, 4):
+        # each block as halo_exchange delivers it to sharded_cascaded_cfar2d:
+        # the right halo wider by the columns that make a row whole 16 bytes,
+        # so TMA stages it
         local = G2_RANGE // sp
-        blocks = [(s * local, ext[..., s * local : s * local + local + 2 * h].contiguous())
+        w = local + 2 * h + -(local + 2 * h) % 4
+        ext = torch.cat([rdm[..., -h:], rdm, rdm[..., : w - local - h]], dim=-1)
+        blocks = [(s * local, ext[..., s * local : s * local + w].contiguous())
                   for s in range(sp)]
-        parts = [extended_block_cfar(blk, cfg, n_clutter, G2_RANGE, segments, c0, h)
+        parts = [extended_block_cfar(blk, cfg, n_clutter, G2_RANGE, segments, c0, local, h)
                  for c0, blk in blocks]
         got_f, got_v = torch.cat([f for f, _ in parts], -1), torch.cat([v for _, v in parts], -1)
         n_diff = int((got_f != plain_f).sum() + (got_v != plain_v).sum()
                      + (got_f != whole_f).sum() + (got_v != whole_v).sum())
-        ms = cuda_ms({"blocks": lambda blocks=blocks: [
-                          extended_block_cfar(blk, cfg, n_clutter, G2_RANGE, segments, c0, h)
+        ms = cuda_ms({"blocks": lambda blocks=blocks, local=local: [
+                          extended_block_cfar(blk, cfg, n_clutter, G2_RANGE, segments, c0,
+                                              local, h)
                           for c0, blk in blocks],
                       "whole": lambda: kcfar.cascaded_cfar2d(rdm, cfg, n_clutter, segments)})
         route[sp] = {"mismatched_flags": n_diff, "blocks_ms": ms["blocks"],
@@ -1472,9 +1555,8 @@ def phase_sweep(dev) -> dict:
     from radar_signal_process_tpu_torch.evalx import evaluate_frames
     from radar_signal_process_tpu_torch.kernels import cfar as kcfar
     from radar_signal_process_tpu_torch.kernels import rdm as krdm
-    from radar_signal_process_tpu_torch.models.detect import clutter_cells, renotch_mask
+    from radar_signal_process_tpu_torch.models.detect import clutter_cells, renotch_rows
     from radar_signal_process_tpu_torch.models.mtd_pipeline import mtd_produce
-    from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
     from radar_signal_process_tpu_torch.ops.mtd import notch_rows
     from radar_signal_process_tpu_torch.ops.pulse_compression import segmented_pulse_compression
     from radar_signal_process_tpu_torch.params import cpi_params
@@ -1508,20 +1590,21 @@ def phase_sweep(dev) -> dict:
     if bad:
         fail(f"sweep: cells off the reference table: {bad}")
 
-    # every threshold's B1 flags against the plain version on the same RDMs
+    # every threshold's B1 flags (the re-notch fused, as the sweep runs
+    # it) against the plain version on the same RDMs
     n_clutter = clutter_cells(prof, prof.prt_per_frame)
-    keep = torch.from_numpy(renotch_mask(prof, prof.prt_per_frame, n_clutter, 20)).to(dev)
+    zero = renotch_rows(prof, prof.prt_per_frame, n_clutter, 20)
     r_axis, v_axis = prof.range_axis(prof.point_prt), prof.velocity_axis(prof.prt_per_frame)
     r_true = r_axis[prof.segment_starts[1] + round(TARGET_R / prof.delta_r)]
     max_abs, mismatched = 0.0, 0
     for scr in scrs:
         x = torch.from_numpy(g2_echo_batch(prof, scr, 4)).to(dev)
         rdm = mtd_produce(x, prof)
-        rdmn = rdm * keep[:, None]
         for t in thresholds:
             cfg = dataclasses.replace(prof.cfar, threshold=t)
-            kf, kv = kcfar.cascaded_cfar2d(rdmn, cfg, n_clutter, prof.cfar_segments)
-            pf, pv = segmented_cfar(rdmn, prof.cfar_segments, cfg, n_clutter)
+            kf, kv = kcfar.cascaded_cfar2d(rdm, cfg, n_clutter, prof.cfar_segments,
+                                           zero_rows=zero)
+            pf, pv = kcfar.cascaded_cfar2d_plain(rdm, cfg, n_clutter, prof.cfar_segments, zero)
             diff = torch.cat([(kf != pf).flatten(), (kv != pv).flatten()])
             mismatched += int(diff.sum())
             max_abs = max(max_abs, float(diff.float().max()))
@@ -1535,9 +1618,12 @@ def phase_sweep(dev) -> dict:
     if mismatched:
         fail(f"sweep: {mismatched} B1 flags differ from the plain version")
     cfg = dataclasses.replace(prof.cfar, threshold=thresholds[0])
-    b1 = b1_report("sweep, 4 frames", rdmn, cfg, n_clutter,
-                   lambda: kcfar.cascaded_cfar2d(rdmn, cfg, n_clutter, prof.cfar_segments),
-                   lambda: segmented_cfar(rdmn, prof.cfar_segments, cfg, n_clutter))
+    b1 = b1_report("sweep, 4 frames, re-notch fused", rdm, cfg, n_clutter,
+                   lambda: kcfar.cascaded_cfar2d(rdm, cfg, n_clutter, prof.cfar_segments,
+                                                 zero_rows=zero),
+                   lambda: kcfar.cascaded_cfar2d_plain(rdm, cfg, n_clutter, prof.cfar_segments,
+                                                       zero),
+                   notched_rows=zero[1] - zero[0])
     b1.update(max_abs_err=max_abs, mismatched_flags=mismatched, library_ms=None)
     params = cpi_params(prof, prof.prt_per_frame, x.device)
     pc = segmented_pulse_compression(x, prof, params.pc_spectra, params.pc_filter_lens)
@@ -1915,6 +2001,9 @@ def phase_bench(dev) -> dict:
     idle = [(k, w) for k, ws in want.items() for w in ws if counts[w][k] < 1]
     if idle:
         fail(f"bench: a kernel did not run in a workload that drives it: {idle}")
+    flags = result["checks"]["headline_b1"]["flags"]
+    if flags != HEADLINE_FLAGS:
+        fail(f"bench: B1 raised {flags} flags on the headline window, not {HEADLINE_FLAGS}")
     print(f"bench: all workloads in {wall:.1f} s, every check ok; headline "
           f"{result['value']:.2f} frames/s (p50 {result['frame_ms_p50']:.3f} ms, "
           f"{result['timing_samples']} calls), block {result['block_window_ms_p50']:.3f} ms a "

@@ -423,16 +423,16 @@ def _detect_sweep(args, profile, device, on_result: Optional[Callable] = None) -
     """Stage-3 threshold sweep over the file bus (``main_cfar.m:40``).
 
     The reference loops ``for T=[...]`` over the loaded stage-2 frames and
-    writes one ``cfarFlag{win}_T{T}`` directory per threshold.  Each frame
-    is re-notched once, then B1 runs once per threshold on it (B1 takes the
-    threshold at run time, so every threshold shares one launch plan).
+    writes one ``cfarFlag{win}_T{T}`` directory per threshold.  B1 runs
+    once per threshold on each frame, the re-notch fused into its load
+    (``zero_rows``; B1 takes the threshold at run time, so every threshold
+    shares one launch plan).
     """
-    from radar_signal_process_tpu_torch.device import REAL
     from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
     from radar_signal_process_tpu_torch.models.detect import (
         RENOTCH_DIVISOR,
         clutter_cells,
-        renotch_mask,
+        renotch_rows,
     )
     from radar_signal_process_tpu_torch.ops.measure import extract_detections
     from radar_signal_process_tpu_torch.utils import matbus
@@ -449,7 +449,7 @@ def _detect_sweep(args, profile, device, on_result: Optional[Callable] = None) -
         return f"{args.output}_T{t_name(t)}"
 
     timers = StageTimers(device)
-    n_clutter = keep = segments = None
+    n_clutter = zero = segments = None
     done = 0
     with torch.inference_mode():
         for frame_idx in range(args.frames):
@@ -467,15 +467,14 @@ def _detect_sweep(args, profile, device, on_result: Optional[Callable] = None) -
                 n_v, n_r = rdm_arr.shape[-2:]
                 n_clutter = clutter_cells(profile, n_v, args.clutter_v)
                 segments = profile.cfar_segments or ((0, n_r),)
-                mask = renotch_mask(profile, n_v, n_clutter, RENOTCH_DIVISOR)
-                keep = torch.as_tensor(mask, dtype=REAL, device=device)[:, None]
+                zero = renotch_rows(profile, n_v, n_clutter, RENOTCH_DIVISOR)
             out = {}
             with timers.stage("cfar_sweep"):
                 rdms = _rdms_to_device(rdm_arr, device)
-                rn = rdms * keep
                 for t in thresholds:
                     cfg = dataclasses.replace(profile.cfar, threshold=t)
-                    flags, vflags = cascaded_cfar2d(rn, cfg, n_clutter, segments)
+                    flags, vflags = cascaded_cfar2d(rdms, cfg, n_clutter, segments,
+                                                    zero_rows=zero)
                     out[t] = _detection_arrays(
                         flags, vflags, extract_detections(flags, rdms, args.max_detections))
             with timers.stage("save"):

@@ -7,9 +7,9 @@ MTD + CFAR chain runs per (SCR, threshold) cell, and the detection metrics
 are tabulated.
 
 The ``n_frames`` echoes of one SCR go through the chain as one batch:
-``mtd_produce`` (one B2 launch) and the re-notch once, then one B1 launch
-per threshold over the whole batch (B1 takes the threshold at run time, so
-every threshold shares one launch plan).  The flags are those of the JAX
+``mtd_produce`` (one B2 launch), then one B1 launch per threshold over the
+whole batch with the re-notch fused into its load (B1 takes the threshold
+at run time, so every threshold shares one launch plan).  The flags are those of the JAX
 package's ref-level form, which keeps the roll form's sum order.
 """
 
@@ -22,13 +22,13 @@ import numpy as np
 import torch
 
 from radar_signal_process_tpu_torch.config import RadarProfile
-from radar_signal_process_tpu_torch.device import REAL, resolve_device
+from radar_signal_process_tpu_torch.device import resolve_device
 from radar_signal_process_tpu_torch.evalx.metrics import TruthGate, evaluate_frames
 from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
 from radar_signal_process_tpu_torch.models.detect import (
     RENOTCH_DIVISOR,
     clutter_cells,
-    renotch_mask,
+    renotch_rows,
 )
 from radar_signal_process_tpu_torch.models.mtd_pipeline import mtd_produce
 from radar_signal_process_tpu_torch.sim import (
@@ -72,12 +72,11 @@ def sweep_thresholds(
     for scr in scr_db:
         echo = np.stack([add_clutter(apply_scr(target, c, scr, profile), c) for c in clutters])
         rdm = mtd_produce(torch.from_numpy(echo.astype(np.complex64)).to(device), profile)
-        keep = renotch_mask(profile, rdm.shape[-2], n_clutter, renotch_divisor)
-        rdmn = rdm if keep is None else rdm * torch.as_tensor(keep, dtype=REAL, device=device)[:, None]
+        zero = renotch_rows(profile, rdm.shape[-2], n_clutter, renotch_divisor)
         rdm_host = list(rdm.cpu().numpy())
         for t in thresholds:
             cfg = dataclasses.replace(profile.cfar, threshold=float(t))
-            flags, _ = cascaded_cfar2d(rdmn, cfg, n_clutter, segments)
+            flags, _ = cascaded_cfar2d(rdm, cfg, n_clutter, segments, zero_rows=zero)
             results[(float(scr), float(t))] = evaluate_frames(
                 list(flags.cpu().numpy()), rdm_host, r_true, v_true, r_axis, v_axis, gate=gate,
             )

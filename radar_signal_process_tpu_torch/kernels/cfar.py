@@ -8,20 +8,22 @@ fallback, strict ``>`` first-maximum cascade).
 
 On a CUDA tensor :func:`cascaded_cfar2d` launches ``csrc/cfar.cu`` once per
 call, over every pulse segment.  The kernel is bound by bytes (read the used
-f32 rows, write two byte-wide flag maps, ~0.33 GB per G2 window): a block
-streams a strip of columns down a band of rows, one thread a column, forms
-each window mean once, and stores each row's flags as it goes.
-:func:`cfar_plan` (plain Python, so the CPU tests reach it) cuts the
-segments into strips and bands.  On a CPU tensor the wrapper runs the plain ``ops.cfar`` version.
+f32 rows, write two byte-wide flag maps, ~0.31 GB per G2 window): a block
+streams a strip of columns down a band of rows, four columns a thread, its
+rows brought into shared memory by TMA (or by cp.async where the row stride
+is not a multiple of 16 bytes), forms each window mean once, and stores each
+row's flags as it goes.  ``zero_rows`` fuses the CFAR stage's re-notch into
+the load: those rows read as 0.0 and are not fetched.  :func:`cfar_plan`
+(plain Python, so the CPU tests reach it) cuts the RDM into strips and
+bands.  On a CPU tensor the wrapper runs the plain ``ops.cfar`` version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from radar_signal_process_tpu_torch.config import CFARConfig
@@ -30,109 +32,127 @@ from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
 
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
 MAX_SEGMENTS = 32        # the kernel's segment table (csrc/cfar.cu kMaxSegments)
-PREFETCH, ROWS = 8, 4    # rows in flight, rows per step (csrc/cfar.cu kPrefetch, kRows)
+PREFETCH, ROWS = 4, 4    # rows staged ahead, rows a step (csrc/cfar.cu kPrefetch, kRows)
 H100_SMS = 132
-STRIPS = (256, 128, 64)  # strip widths csrc/cfar.cu is built for, the widest first
-# the band model of cfar_plan, fitted to H100 runs of csrc/cfar.cu at the G2
-# and G0 shapes: a row step of a block takes STEP_LATENCY cycles plus
-# STEP_ISSUE for each warp resident on its SM; a step that only fills the
-# pipeline costs FILL_SHARE of one that decides cells
-STEP_LATENCY, STEP_ISSUE, FILL_SHARE = 100, 32, 0.3
+STRIPS = (128, 256, 512, 1024)  # staged tile widths csrc/cfar.cu is built for
+COLS = 4                 # neighbouring columns a thread (csrc/cfar.cu kCols)
+# the band model of cfar_plan: a row step of a block takes STEP_LATENCY
+# cycles plus STEP_ISSUE for each warp resident on its SM; a step that only
+# fills the pipeline costs FILL_SHARE of one that decides cells.  Set so the
+# model picks the tile width and band length tools/bench_b1.py --plans timed
+# fastest on an H100 at G2, the main path (tiles of 256, bands of 101), and
+# at G0's 512 columns (bands of 13).  At G0's 62 columns it picks bands of 5,
+# 9% slower there than bands of 4: the model counts a band's rows, not its
+# whole 4-row steps, and counting steps moves G2 off its fastest band.
+STEP_LATENCY, STEP_ISSUE, FILL_SHARE = 200, 32, 0.7
 
 
 class CfarPlan(NamedTuple):
-    """Block map of one launch.  A block walks a band of ``band_rows``
-    cropped rows down a strip of ``tx`` columns with ``threads`` threads, one
-    a staged column; ``table`` holds one ``(col0, ns, first_block)`` per
-    segment, blocks of a segment run strip by strip, band fastest, and
-    ``grid.y`` is the batch."""
+    """Block map of one launch.  Each strip of ``tx`` output columns stages
+    ``sw = tx + 2 * halo`` columns a row, ``COLS`` a thread (``threads``); a
+    block walks a band of ``band_rows`` cropped rows of one RDM down one
+    strip, ``blockIdx.x = strip * n_bands + band`` and ``grid.y`` the batch.
+    ``table`` holds one ``(col0, ns)`` per segment.  ``tma`` says how rows
+    are staged: by TMA, or by cp.async where the row stride is not a
+    multiple of 16 bytes."""
 
+    sw: int
     tx: int
+    halo: int
     band_rows: int
     threads: int
-    table: Tuple[Tuple[int, int, int], ...]
+    table: Tuple[Tuple[int, int], ...]
+    n_strips: int
     n_bands: int
     n_blocks: int
     smem: int
+    tma: bool
 
 
-def smem_bytes(tx: int, r: int, g: int, e: int) -> int:
+def halo_columns(cfg: CFARConfig) -> int:
+    """Range halo a side, ``2e + r + g`` rounded up to whole 16-byte groups."""
+    return -(-(2 * cfg.range_extend_cells + cfg.ref_cells + cfg.guard_cells) // 4) * 4
+
+
+def smem_bytes(sw: int, r: int, g: int) -> int:
     """Shared-memory bytes of one block (``csrc/cfar.cu`` layout: the ring of
-    staged rows, the ring of velocity means, the row's cascade flags)."""
-    sw = tx + 2 * (2 * e + r + g)
-    return (4 * ((PREFETCH + ROWS + g + r) * sw + (2 * g + r + 1 + ROWS) * (tx + 2 * e))
-            + ROWS * tx)
+    staged rows in whole steps of ``ROWS``, the ring of velocity means, two
+    buffers of cascade marks, an mbarrier a step of rows)."""
+    data = -(-(PREFETCH + ROWS + g + r) // ROWS) * ROWS
+    means = 2 * g + r + 1 + (0 if 2 * g + r + 1 >= ROWS else ROWS)
+    return 4 * (data + means) * sw + 2 * ROWS * sw + 8 * (data // ROWS)
 
 
 def cfar_plan(
     segments: Sequence[Tuple[int, int]], nvu: int, batch: int, cfg: CFARConfig,
-    n_sms: int = H100_SMS,
+    n_sms: int = H100_SMS, aligned: bool = True,
 ) -> CfarPlan:
-    """The block map for ``segments`` over ``nvu`` cropped rows.
+    """The block map for ``segments`` (tiling ``[0, nr)``) over ``nvu``
+    cropped rows.
 
-    Strips are the widest of ``STRIPS`` that some segment fills more than
-    half of and that fits a block.  Each band restarts the velocity
-    pipeline, which costs 2(g+r) row steps; the band length minimises the
-    modelled time: the row steps of all blocks over the SMs' resident blocks,
-    at cycles a step that grow with the warps resident, plus the last
-    block's steps alone.
+    Rows are staged by TMA when the row stride is a multiple of 16 bytes
+    (``nr % 4 == 0``) and ``aligned`` (the RDM starts on a 16-byte
+    boundary), else by cp.async.  The tile width and the band length
+    minimise the modelled time: the row steps of all blocks over the SMs'
+    resident blocks, at cycles a step that grow with the warps resident,
+    plus the last block's steps alone.  Each band restarts the velocity
+    pipeline, which costs 2(g+r) row steps.
     """
     if not 1 <= len(segments) <= MAX_SEGMENTS:
         raise ValueError(f"{len(segments)} segments outside 1..{MAX_SEGMENTS}")
-    widest = max(b - a for a, b in segments)
+    nr = segments[-1][1]
     r, g, e = cfg.ref_cells, cfg.guard_cells, cfg.range_extend_cells
-    for tx in [w for w in STRIPS if 2 * widest > w] or STRIPS[-1:]:
-        threads = -(-(tx + 2 * (2 * e + r + g)) // 32) * 32
-        smem = smem_bytes(tx, r, g, e)
-        if threads <= 1024 and smem <= SMEM_LIMIT:
-            break
-    else:
+    halo = halo_columns(cfg)
+    fill = FILL_SHARE * 2 * (g + r)
+    best = None
+    for sw in STRIPS:
+        tx, threads, smem = sw - 2 * halo, sw // COLS, smem_bytes(sw, r, g)
+        if tx < 4 or smem > SMEM_LIMIT or threads > 1024:
+            continue
+        n_strips = -(-nr // tx)
+        warps = -(-threads // 32)
+        per_sm = max(1, min(2048 // threads, 32, 233472 // (smem + 1024)))
+        for band_rows in sorted({-(-nvu // n) for n in range(1, nvu + 1)}, reverse=True):
+            blocks = batch * n_strips * -(-nvu // band_rows)
+            resident = min(per_sm, -(-blocks // n_sms))
+            steps = band_rows + fill
+            cost = (blocks * steps / (n_sms * resident)
+                    * (STEP_LATENCY + resident * warps * STEP_ISSUE)
+                    + steps * (STEP_LATENCY + warps * STEP_ISSUE))
+            if best is None or cost < best[0]:
+                best = (cost, sw, band_rows)
+    if best is None:
         raise ValueError(
-            f"CFAR windows {cfg} need {threads} threads and {smem} B of shared memory "
-            f"a block (> 1024, {SMEM_LIMIT})"
+            f"CFAR windows {cfg} need a halo of {halo} columns a side: no tile of "
+            f"{STRIPS[-1]} columns ({STRIPS[-1] // COLS} threads) fits {SMEM_LIMIT} B of "
+            f"shared memory with room for output columns"
         )
-    strips = sum(-(-(b - a) // tx) for a, b in segments)
-    warps = threads // 32
-    per_sm = max(1, min(2048 // threads, 32, 233472 // (smem + 1024)))
-
-    def cost(band_rows):
-        blocks = batch * strips * -(-nvu // band_rows)
-        resident = min(per_sm, -(-blocks // n_sms))
-        steps = band_rows + FILL_SHARE * 2 * (g + r)
-        return (blocks * steps / (n_sms * resident)
-                * (STEP_LATENCY + resident * warps * STEP_ISSUE)
-                + steps * (STEP_LATENCY + warps * STEP_ISSUE))
-
-    band_rows = min({-(-nvu // n) for n in range(1, nvu + 1)}, key=lambda b: (cost(b), -b))
-    n_bands = -(-nvu // band_rows)
-    table, first = [], 0
-    for a, b in segments:
-        table.append((a, b - a, first))
-        first += -(-(b - a) // tx) * n_bands
-    return CfarPlan(tx, band_rows, threads, tuple(table), n_bands, first, smem)
+    _, sw, band_rows = best
+    tx = sw - 2 * halo
+    n_strips, n_bands = -(-nr // tx), -(-nvu // band_rows)
+    return CfarPlan(sw, tx, halo, band_rows, sw // COLS,
+                    tuple((a, b - a) for a, b in segments), n_strips, n_bands,
+                    n_strips * n_bands, smem_bytes(sw, r, g), aligned and nr % 4 == 0)
 
 
-def plan_tile(plan: CfarPlan, block: int) -> Tuple[int, int, int, int, int]:
-    """``(col0, ns, x0, y_begin, y_end)`` of ``blockIdx.x == block``,
-    decoded as the kernel decodes it: the segment, its strip and band; the
-    block decides cropped rows ``[y_begin, y_end)`` of columns
-    ``[x0, x0 + tx)`` of the segment."""
-    s = 0
-    while s + 1 < len(plan.table) and block >= plan.table[s + 1][2]:
-        s += 1
-    col0, ns, first = plan.table[s]
-    ct, band = divmod(block - first, plan.n_bands)
-    return col0, ns, ct * plan.tx, band * plan.band_rows, (band + 1) * plan.band_rows
+def plan_tile(plan: CfarPlan, block: int) -> Tuple[int, int, int]:
+    """``(x0, y_begin, y_end)`` of ``blockIdx.x == block``, decoded as the
+    kernel decodes it: the block decides cropped rows ``[y_begin, y_end)``
+    of RDM columns ``[x0, x0 + tx)``."""
+    strip, band = divmod(block, plan.n_bands)
+    return strip * plan.tx, band * plan.band_rows, (band + 1) * plan.band_rows
 
 
 def plan_key(
-    segments: Sequence[Tuple[int, int]], nvu: int, batch: int, cfg: CFARConfig, n_sms: int
+    segments: Sequence[Tuple[int, int]], nvu: int, batch: int, cfg: CFARConfig, n_sms: int,
+    aligned: bool = True,
 ) -> tuple:
-    """What shapes a launch's plan: the geometry, the windows, the method and
-    the card's SMs.  The threshold is not in it: a threshold sweep reuses
-    one plan (the kernel takes the threshold at run time)."""
+    """What shapes a launch's plan: the geometry, the windows, the method,
+    the card's SMs and whether the RDM starts on a 16-byte boundary.  The
+    threshold is not in it: a threshold sweep reuses one plan (the kernel
+    takes the threshold at run time), nor are the re-notched rows."""
     return (tuple(segments), nvu, batch, cfg.ref_cells, cfg.guard_cells,
-            cfg.range_extend_cells, cfg.method, n_sms)
+            cfg.range_extend_cells, cfg.method, n_sms, aligned)
 
 
 def extended_segments(
@@ -167,20 +187,50 @@ def extended_segments(
 
 @functools.lru_cache(maxsize=64)
 def _launch_table(segments, nvu: int, batch: int, r: int, g: int, e: int, method: int,
-                  n_sms: int):
+                  n_sms: int, aligned: bool):
     """The plan of one launch and its segment table as the C entry point
-    takes it (col0[], ns[], first_block[]), built once per :func:`plan_key`."""
+    takes it (col0[], end[]), built once per :func:`plan_key`."""
     plan = cfar_plan(segments, nvu, batch,
                      CFARConfig(ref_cells=r, guard_cells=g, range_extend_cells=e,
-                                method=method), n_sms)
-    lib = _build.library()
-    if lib.rsp_cascaded_cfar_smem_bytes(plan.tx, r, g, e) != plan.smem:
+                                method=method), n_sms, aligned)
+    if _build.library().rsp_cascaded_cfar_smem_bytes(plan.sw, r, g) != plan.smem:
         raise RuntimeError("cascaded_cfar2d: csrc/cfar.cu and smem_bytes disagree")
-    table = (ctypes.c_int * (3 * len(plan.table) + 1))(
-        *(c for c, _, _ in plan.table), *(w for _, w, _ in plan.table),
-        *(f for _, _, f in plan.table), plan.n_blocks,
-    )
+    table = (ctypes.c_int * (2 * len(plan.table)))(
+        *(c for c, _ in plan.table), *(c + w for c, w in plan.table))
     return plan, table
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _zero_rows(zero_rows: Optional[Tuple[int, int]], nv: int) -> Tuple[int, int]:
+    """``zero_rows`` clipped to ``[0, nv)``, ``(0, 0)`` when empty."""
+    if zero_rows is None:
+        return 0, 0
+    a, b = max(int(zero_rows[0]), 0), min(int(zero_rows[1]), nv)
+    return (a, b) if a < b else (0, 0)
+
+
+def cascaded_cfar2d_plain(
+    rdm: torch.Tensor,
+    cfg: CFARConfig,
+    n_clutter: int,
+    segments: Sequence[Tuple[int, int]] | None = None,
+    zero_rows: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1's plain version, on any device: ``rdm * keep[:, None]`` with
+    ``keep`` zero on ``zero_rows`` (the CFAR stage's re-notch), then
+    ``ops.cfar.segmented_cfar``.  The mask is filled on ``rdm``'s device,
+    so nothing is copied from the host."""
+    nv = rdm.shape[-2]
+    za, zb = _zero_rows(zero_rows, nv)
+    if za < zb:
+        keep = torch.ones(nv, dtype=rdm.dtype, device=rdm.device)
+        keep[za:zb] = 0.0
+        rdm = rdm * keep[:, None]
+    return segmented_cfar(rdm, segments or ((0, rdm.shape[-1]),), cfg, n_clutter)
 
 
 def cascaded_cfar2d(
@@ -188,14 +238,18 @@ def cascaded_cfar2d(
     cfg: CFARConfig,
     n_clutter: int,
     segments: Sequence[Tuple[int, int]] | None = None,
+    zero_rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RDM (..., n_velocity, n_range) float32 -> bool ``(flags, vflags)``.
 
     ``segments`` (half-open column ranges tiling ``[0, n_range)`` once
     clipped to it, default one segment) each get their own range axis, as
-    in ``segmented_cfar``.
-    CPU tensor: the plain version.  CUDA tensor: one kernel launch, or an
-    exception; ``cascaded_cfar2d.launches`` counts the kernel launches.
+    in ``segmented_cfar``.  ``zero_rows`` (a half-open Doppler row range,
+    None or empty for none) reads as 0.0: the result is the plain version's
+    on ``rdm * keep[:, None]`` with ``keep`` zero there, for any finite RDM.
+    CPU tensor: the plain version, :func:`cascaded_cfar2d_plain`.
+    CUDA tensor: one kernel launch, or an exception;
+    ``cascaded_cfar2d.launches`` counts the kernel launches.
     """
     nv, nr = rdm.shape[-2], rdm.shape[-1]
     # clip to the RDM width as slicing does, dropping empty segments
@@ -203,7 +257,7 @@ def cascaded_cfar2d(
         (a, min(b, nr)) for a, b in (segments or ((0, nr),)) if a < min(b, nr)
     )
     if rdm.device.type == "cpu":
-        return segmented_cfar(rdm, segments, cfg, n_clutter)
+        return cascaded_cfar2d_plain(rdm, cfg, n_clutter, segments, zero_rows)
     if rdm.device.type != "cuda":
         raise ValueError(f"cascaded_cfar2d: unsupported device {rdm.device}")
     if rdm.dtype != torch.float32 or not rdm.is_contiguous():
@@ -222,23 +276,40 @@ def cascaded_cfar2d(
     edges = [0] + [b for _, b in segments]
     if [a for a, _ in segments] != edges[:-1] or edges[-1] != nr:
         raise ValueError(f"segments {segments} do not tile [0, {nr})")
-    batch = int(np.prod(rdm.shape[:-2], dtype=np.int64))
+    batch = rdm.numel() // (nv * nr) if nv * nr else 0
     if not 0 < batch <= 65535:
         raise ValueError(f"cascaded_cfar2d: batch {batch} outside 1..65535")
 
-    n_sms = torch.cuda.get_device_properties(rdm.device).multi_processor_count
-    plan, table = _launch_table(*plan_key(segments, nvu, batch, cfg, n_sms))
-    flags = torch.empty(rdm.shape, dtype=torch.bool, device=rdm.device)
-    vflags = torch.empty(rdm.shape, dtype=torch.bool, device=rdm.device)
+    za, zb = _zero_rows(zero_rows, nv)
+    ptr = rdm.data_ptr()
+    plan, table = _launch_table(*plan_key(segments, nvu, batch, cfg,
+                                          _sm_count(rdm.device.index), ptr % 16 == 0))
+    out = torch.empty((2,) + tuple(rdm.shape), dtype=torch.bool, device=rdm.device)
     stream = torch.cuda.current_stream(rdm.device).cuda_stream
     rc = _build.library().rsp_cascaded_cfar(
-        rdm.data_ptr(), flags.data_ptr(), vflags.data_ptr(), batch, nv, nr, lo, nvu,
-        len(plan.table), table, plan.tx, plan.band_rows, cfg.ref_cells, cfg.guard_cells,
-        cfg.method, float(cfg.threshold), cfg.range_extend_cells, int(cfg.range_detect), stream,
+        ptr, out.data_ptr(), out.data_ptr() + rdm.numel(), batch, nv, nr, lo, nvu,
+        len(plan.table), table, plan.sw, plan.band_rows, cfg.ref_cells, cfg.guard_cells,
+        cfg.method, float(cfg.threshold), cfg.range_extend_cells, int(cfg.range_detect),
+        za, zb, int(plan.tma), stream,
     )
     _build.check(rc, "rsp_cascaded_cfar")
     cascaded_cfar2d.launches += 1
-    return flags, vflags
+    return out[0], out[1]
 
 
 cascaded_cfar2d.launches = 0
+
+
+def division_mismatches(device: torch.device | str = "cuda") -> int:
+    """The float32 bit patterns, of all 2^32, where B1's division by 5
+    (``csrc/cfar.cu::div5``, an FMA sequence) differs in any bit from IEEE
+    division ``__fdiv_rn(x, 5.0f)``: 0, or B1 is not bit-identical to its
+    plain version.  On the card only (a few ms); not a B1 launch."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"division_mismatches: runs on the card, not {device}")
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _build.check(_build.library().rsp_check_div5(bad.data_ptr(), stream), "rsp_check_div5")
+    return int(bad.item())

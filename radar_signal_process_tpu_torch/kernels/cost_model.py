@@ -34,12 +34,16 @@ def roofline(hbm_bytes: float, ops: float, peak_ops: float) -> dict:
 
 
 def cascaded_cfar_cost(batch: int, n_velocity: int, n_range: int, n_clutter: int,
-                       cfg: CFARConfig) -> dict:
+                       cfg: CFARConfig, notched_rows: int = 0) -> dict:
     """B1 (``kernels/cfar.py::cascaded_cfar2d``): the used rows of the f32
-    RDM read once, both byte-wide flag maps written once; per used cell and
-    axis r-1 adds, a division, a product and a compare (FP32 peak)."""
+    RDM read once, less the ``notched_rows`` of them that the fused re-notch
+    (``zero_rows``) reads as 0.0 without fetching, both byte-wide flag maps
+    written once; per used cell and axis r-1 adds, a division, a product and
+    a compare (FP32 peak)."""
     nvu = n_velocity - 2 * n_clutter - 1
-    hbm_bytes = batch * nvu * n_range * 4 + 2 * batch * n_velocity * n_range
+    if not 0 <= notched_rows <= nvu:
+        raise ValueError(f"{notched_rows} notched rows of {nvu} used rows")
+    hbm_bytes = batch * (nvu - notched_rows) * n_range * 4 + 2 * batch * n_velocity * n_range
     ops = 2.0 * batch * nvu * n_range * (cfg.ref_cells + 2)
     return roofline(hbm_bytes, ops, H100_FP32_FLOPS)
 

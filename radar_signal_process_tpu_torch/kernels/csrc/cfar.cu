@@ -1,9 +1,12 @@
 // B1: cascaded velocity-then-range CA-CFAR over every pulse segment of an
-// RDM stack, in one launch.
+// RDM stack, in one launch, with the CFAR stage's re-notch fused into its
+// load.
 //
 // Replaces radar_signal_process_tpu/kernels/cfar_pallas.py:136
 // (cascaded_cfar2d_pallas) and is bit-identical to ops/cfar.py::
-// segmented_cfar (the lockstep contract of the five CFAR implementations):
+// segmented_cfar on rdm * keep[:, None], keep zero on the rows
+// [zero_lo, zero_hi) (the lockstep contract of the five CFAR
+// implementations):
 //
 //  * one window sum per position, acc[k] = d[k] + d[k-1] + ... + d[k-r+1]
 //    added one term at a time in that order (the roll form), with indices
@@ -17,61 +20,122 @@
 //  * a side whose window leaves the axis falls back to the other side;
 //  * cascade: every velocity hit takes its strongest range-flagged neighbour
 //    at offsets -E..E (in-segment only), strict > so the first maximum wins,
-//    and marks that neighbour.
+//    and marks that neighbour;
+//  * the rows [zero_lo, zero_hi) read as 0.0.  rdm * 0 is -0 where rdm is
+//    negative; every sum, comparison and maximum above treats -0 as 0, so
+//    the flags are the plain version's on any finite RDM.
 //
 // The _rn intrinsics are never contracted into FMAs, so the CFAR arithmetic
 // stays on the reference's operation sequence whatever -fmad says.
 //
 // What bounds it on an H100: bytes.  Per G2 window (52 x 332 x 3404) it must
-// read the 303 used rows of f32 (214.5 MB) and write two byte-wide flag maps
-// (117.5 MB): ~0.10 ms at 3.35 TB/s.  The arithmetic is ~1 GFLOP (0.015 ms
-// at 67 TFLOP/s).  What costs in practice is issue and latency per cell, so
-// the design streams each column through a pipeline and keeps the work per
-// cell near the arithmetic itself:
+// read the 303 used rows of f32 less the 35 re-notched ones (189.7 MB) and
+// write two byte-wide flag maps (117.5 MB): 0.092 ms at 3.35 TB/s.  The
+// arithmetic is ~1 GFLOP (0.015 ms at 67 TFLOP/s).  The earlier design (a thread
+// a column, a 4-byte cp.async per cell, two barriers every four rows, byte
+// stores, an IEEE division per mean) spent ~100 instructions a cell and
+// stopped at 0.38 ms; this one spends its instructions on the CFAR
+// arithmetic:
 //
-//  * one launch per call: the segment table (col0, ns, first block) is a
-//    kernel argument and a block finds its segment, column strip and band of
-//    rows from blockIdx.x; blocks of the first band also zero the clutter
-//    rows;
-//  * a block owns a strip of TX output columns (256, 128 or 64) plus the
-//    range halo (hr = 2e+r+g columns each side), one thread per column, and
-//    walks a band of rows down it.  Each thread copies its column's rows by
-//    cp.async kPrefetch rows ahead into a ring in shared memory (neighbouring
-//    lanes on neighbouring addresses), the column wrapped once, when the
-//    thread starts, the row index as it goes;
-//  * a column's velocity window slides in registers: per row one new value,
-//    r-1 adds, one division, and the mean goes into a per-column ring, from
+//  * one launch per call; a block owns a strip of TX output columns of one
+//    RDM (blockIdx.y) and walks a band of rows down it.  Strips are cut from
+//    the RDM's columns, not from its segments, so every thread's four
+//    columns start on a 16-byte boundary; a thread finds the segment of
+//    each of its columns once, when it starts;
+//  * the staged tile is SW = TX + 2H columns (H = 2e+r+g rounded up to 4,
+//    the range halo), kCols = 4 neighbouring columns a thread, SW/4 threads;
+//  * staging by TMA (cp.async.bulk.tensor) into a ring of steps of kRows
+//    rows, each step completing on one mbarrier, kPrefetch rows ahead of
+//    the step in use (a deeper ring costs a block an SM): one box of the step's kRows rows where they are
+//    neighbours in the RDM, else (the wrap at a band's start or end, the
+//    edge of the re-notch band) a box a row, issued by the lanes of warp 0
+//    together.  A re-notched row or step is fetched as a box wholly outside
+//    the tensor, which the TMA engine zero-fills without reading memory.
+//    The tensor maps (cuTensorMapEncodeTiled, from cudaGetDriverEntryPoint,
+//    so the library needs no -lcuda) are a __grid_constant__ argument;
+//  * shapes TMA cannot take (a row stride that is not a multiple of 16
+//    bytes, as G0's 62-column RDM, or an RDM that does not start on a
+//    16-byte boundary; parallel/sharding.py pads a range shard's
+//    halo-extended block to whole 16 bytes a row) take the other staging
+//    path of the same kernel: each thread copies its four columns by
+//    cp.async, zero-filling re-notched rows and columns outside the RDM,
+//    and arrives on the same mbarrier (cp.async.mbarrier.arrive.noinc).  kernels/cfar.py::cfar_plan picks
+//    the path by shape;
+//  * velocity: per row a thread reads its four columns with one 16-byte
+//    shared-memory load, slides four windows in registers (r-1 adds and a
+//    division by 5 each, div5: three FP32 operations, exact, no branch), and
+//    keeps the means in a ring in shared memory of its own columns, from
 //    which the cell 2g+r+1 rows later takes its left mean; the right mean is
-//    the one just formed.  No mean is formed twice and no row is read twice,
-//    except 2(g+r) rows to fill the pipeline at a band's start
-//    (kernels/cfar.py::cfar_plan sizes the bands);
-//  * range means are needed only around velocity hits (a few percent of the
-//    cells), so they are formed there, in the cascade, from the staged row;
-//  * a thread takes kRows rows per step, kRows independent chains, and a
-//    step has two barriers: the rows' staged values and flags are in before
-//    the cascade reads neighbours, the cascade's marks before the stores.
-//    Each warp stores 32 neighbouring flag bytes of both maps per row;
+//    the one just formed.  A step waits on one mbarrier, then runs
+//    4 x kRows independent chains;
+//  * range means are needed only around velocity hits, so they are formed
+//    there, in the cascade, from the staged row.  A window that wraps (a
+//    segment narrower than 2(g+r)+1) reads its wrapped cells from the tile
+//    or, outside it, from memory.  On a re-notched row every cell, mean and
+//    level is 0, so each candidate's flag is 0 >= 0*T and the first
+//    in-segment candidate wins: the cascade takes that answer without
+//    reading the row;
+//  * one block barrier a step: the marks a hit sets on a neighbour's column
+//    are in before the stores.  It also frees the ring steps the block has
+//    finished with, so the producer needs no second mbarrier per step;
+//  * stores: a thread packs its four flags of a row into one 32-bit store
+//    per map from registers (a warp writes 128 contiguous bytes);
 //  * the shipped windows (r = 5, g = 7, e = 1) are compile-time, so every
 //    index and loop bound folds; other windows take a build with them at
-//    run time.
+//    run time (and the IEEE division).
+// Measured (tools/bench_b1.py, NVIDIA H100 80GB HBM3 at a 700 W power
+// limit, G2 fused): 0.262 ms of device time, 35% of the byte floor, where
+// the earlier design took 0.380 on the re-notched RDM, and its re-notch product
+// and B1 0.578.  What its parts cost (--cuts, --plans): the IEEE division in
+// place of div5 +0.14 ms; cp.async staging in place of TMA +0.16; a box a
+// row in place of a box a step +0.012; 8 or 16 rows ahead in place of 4
+// +0.056 (a block fewer an SM); the flag stores 0.059; the range pass 0.037.
 
+#include <cuda.h>  // CUtensorMap and the driver's enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "sm90_async.cuh"
+
 namespace {
 
+using rsp::cp_async4;
+using rsp::mbar_arrive_expect_tx;
+using rsp::mbar_fence_init;
+using rsp::mbar_init;
+using rsp::mbar_wait;
+
 constexpr int kMaxSegments = 32;
-constexpr int kRows = 4;         // rows a thread takes per step
-constexpr int kPrefetch = 8;     // rows in flight ahead of a step's first
+constexpr int kRows = 4;         // rows a step
+constexpr int kCols = 4;         // neighbouring columns a thread
+constexpr int kPrefetch = 4;     // rows staged ahead of a step's first (a multiple of kRows)
+constexpr int kBox = 256;        // TMA box width limit (columns)
 constexpr int kNoWinner = 255;   // no range-flagged neighbour (offsets are -127..127)
 
-struct SegmentTable {
-  int n;
+// The RDM as a TMA tensor (columns x batch * rows, f32): boxes of one row
+// and boxes of one step's kRows rows, each min(SW, kBox) columns wide.
+struct Maps {
+  CUtensorMap row;
+  CUtensorMap step;
+};
+
+struct CfarArgs {
+  const float* rdm;
+  uint8_t* flags;
+  uint8_t* vflags;
+  int nv, nr, lo, nvu;        // rows, columns, first cropped row, cropped rows
+  int n_bands, band_rows;     // the block map: blockIdx.x = strip * n_bands + band
+  int halo, tx;               // H, output columns a strip
+  int r, g, e, method;
+  float t;
+  int range_detect;
+  int zero_lo, zero_hi;       // RDM rows read as 0.0
+  int tma;                    // staging by TMA (else cp.async)
+  int n_seg;
   int col0[kMaxSegments];
-  int ns[kMaxSegments];
-  int first_block[kMaxSegments + 1];
+  int cend[kMaxSegments];
 };
 
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -79,27 +143,38 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : i;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // CA-CFAR flag of v from its left/right window means; lok/rok say whether
 // each window stays inside the axis
-__device__ __forceinline__ uint8_t cfar_flag(float v, float left, float right, bool lok,
-                                             bool rok, int method, float t) {
+__device__ __forceinline__ bool cfar_flag(float v, float left, float right, bool lok, bool rok,
+                                          int method, float t) {
   const float left_used = lok ? left : right;
   const float right_used = rok ? right : left;
   const float level = method == 0 ? fmaxf(left_used, right_used)
                                   : fminf(left_used, right_used);
-  return v >= __fmul_rn(level, t) ? 1 : 0;
+  return v >= __fmul_rn(level, t);
+}
+
+// x / r for the shipped r = 5 without a division: q = x * RN(1/5), the
+// remainder x - 5q exactly by an FMA, then q + rem * RN(1/5) rounded once.
+// It is __fdiv_rn(x, 5.0f) bit for bit on all 2^32 inputs (exact quotients,
+// +-0, inf and NaN keep q): rsp_check_div5 counts the inputs where the two
+// differ, and chip_smoke.py and tests/test_torch_gpu.py require 0.  Unlike
+// __fdiv_rn it has no branch to a slow path, so the 4 x kRows means of a
+// step schedule as one block of independent chains.
+__device__ __forceinline__ float div5(float x) {
+  const float c = 0.2f;
+  const float q = __fmul_rn(x, c);
+  const float rem = __fmaf_rn(-q, 5.0f, x);
+  return fabsf(rem) > 0.f ? __fmaf_rn(rem, c, q) : q;
+}
+
+template <int R>
+__device__ __forceinline__ float div_r(float x, float rf) {
+  if constexpr (R == 5) {
+    return div5(x);
+  } else {
+    return __fdiv_rn(x, rf);
+  }
 }
 
 // One window mean: (x[0] + x[-1]) + ... + x[-(r-1)], divided by r.
@@ -112,301 +187,501 @@ __device__ __forceinline__ float window_mean(const float* top, int r, float rf) 
   } else {
     for (int j = 1; j < r; ++j) acc = __fadd_rn(acc, top[-j]);
   }
-  return __fdiv_rn(acc, rf);
+  return div_r<R>(acc, rf);
 }
 
-// Shared-memory layout of one block (the kernel below): the ring of
-// kPrefetch + kRows + g + r staged rows of sw = TX + 2hr columns, the ring
-// of 2g + r + 1 + kRows velocity means of the vw = TX + 2e source columns,
-// the TX cascade flags of each of a step's kRows rows.
-__host__ __device__ constexpr int data_ring(int r, int g) { return kPrefetch + kRows + g + r; }
-__host__ __device__ constexpr int mean_ring(int r, int g) { return 2 * g + r + 1 + kRows; }
-
-__host__ __device__ constexpr int smem_bytes(int tx, int r, int g, int e) {
-  const int sw = tx + 2 * (2 * e + r + g);
-  return 4 * (data_ring(r, g) * sw + mean_ring(r, g) * (tx + 2 * e)) + kRows * tx;
+// Shared-memory layout of one block: the ring of staged rows (kPrefetch +
+// kRows + g + r rounded up to whole steps of kRows rows, SW floats a row),
+// the ring of velocity means (SW floats a row, each thread its own columns:
+// 2g + r + 1 rows when a step reads its left means before it writes its
+// means, which needs 2g + r + 1 >= kRows, else kRows more), two buffers of a
+// step's cascade marks (kRows x SW bytes each), one mbarrier a step of rows.
+__host__ __device__ constexpr int data_ring(int r, int g) {
+  return (kPrefetch + kRows + g + r + kRows - 1) / kRows * kRows;
+}
+__host__ __device__ constexpr int mean_ring(int r, int g) {
+  return 2 * g + r + 1 >= kRows ? 2 * g + r + 1 : 2 * g + r + 1 + kRows;
 }
 
-// Threads of a block: one per staged column, TX + 2hr, in whole warps.
-__host__ __device__ constexpr int block_threads(int tx, int r, int g, int e) {
-  return (tx + 2 * (2 * e + r + g) + 31) / 32 * 32;
+__host__ __device__ constexpr int smem_bytes(int sw, int r, int g) {
+  return 4 * (data_ring(r, g) + mean_ring(r, g)) * sw + 2 * kRows * sw +
+         8 * (data_ring(r, g) / kRows);
 }
 
-// Launch bounds: with the windows compile-time, as many blocks per SM as
-// its threads and 228 KB of shared memory allow, registers capped to fit
-// them; else up to 1024 threads.
-template <int TX, int R, int G, int E>
-constexpr int kMaxThreads = R > 0 ? block_threads(TX, R, G, E) : 1024;
-template <int TX, int R, int G, int E>
-constexpr int kMinBlocks =
-    R > 0 ? (2048 / kMaxThreads<TX, R, G, E> < 233472 / (smem_bytes(TX, R, G, E) + 1024)
-                 ? 2048 / kMaxThreads<TX, R, G, E>
-                 : 233472 / (smem_bytes(TX, R, G, E) + 1024))
-          : 1;
+// The kCols neighbouring columns of a thread, read or written as one
+// 16-byte vector.
+struct Cols {
+  float v[kCols];
+};
+
+__device__ __forceinline__ Cols load_cols(const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  return {{t.x, t.y, t.z, t.w}};
+}
+
+__device__ __forceinline__ void store_cols(float* p, const Cols& c) {
+  *reinterpret_cast<float4*>(p) = make_float4(c.v[0], c.v[1], c.v[2], c.v[3]);
+}
+
+// a thread's four flags of a row, bit j -> byte j of one 32-bit word
+__device__ __forceinline__ uint32_t flag_bytes(uint32_t bits) {
+  return ((bits & 0xFu) * 0x00204081u) & 0x01010101u;
+}
 
 // One CFAR configuration (r reference cells, g guard cells, GO/SO method,
 // threshold t) serves both axes, as every reference call site passes.  With
-// R > 0 the windows (R, G, E) are compile-time, so every index and loop
-// bound folds; R == 0 takes them from the arguments.
-template <int TX, int R, int G, int E>
-__global__ void __launch_bounds__(kMaxThreads<TX, R, G, E>, kMinBlocks<TX, R, G, E>)
-cascaded_cfar_kernel(const float* __restrict__ rdm, uint8_t* __restrict__ flags,
-                                     uint8_t* __restrict__ vflags, const SegmentTable tab,
-                                     int nv, int nr, int lo, int nvu, int n_bands,
-                                     int band_rows, int r_arg, int g_arg, int method, float t,
-                                     int e_arg, int range_detect) {
-  const int r = R > 0 ? R : r_arg;
-  const int g = R > 0 ? G : g_arg;
-  const int e = R > 0 ? E : e_arg;
-  extern __shared__ __align__(16) float smem[];
-  const int hr = 2 * e + r + g;      // range halo (columns)
-  const int sw = TX + 2 * hr;        // staged columns, one thread each
-  const int vw = TX + 2 * e;         // source columns x0-e .. x0+TX+e-1
+// R > 0 the windows (R, G, E) are compile-time; R == 0 takes them from the
+// arguments.  A thread owns kCols neighbouring columns of the SW staged.
+template <int SW, int R, int G, int E>
+__global__ void __launch_bounds__(SW / kCols)
+cascaded_cfar_kernel(const __grid_constant__ Maps maps,
+                     const __grid_constant__ CfarArgs a) {
+  constexpr int kThreads = SW / kCols;
+  constexpr int kSlotBox = SW < kBox ? SW : kBox;
+  const int r = R > 0 ? R : a.r;
+  const int g = R > 0 ? G : a.g;
+  const int e = R > 0 ? E : a.e;
+  const int lag = g + r;             // steps from a row's staging to its cell
+  const int mlag = 2 * g + r + 1;    // steps from a cell's left mean to it
   const int dr = data_ring(r, g);
+  const int ng = dr / kRows;         // steps of rows in the ring, one mbarrier each
   const int mr = mean_ring(r, g);
-  float* s_d = smem;                 // [dr][sw]
-  float* s_mv = s_d + dr * sw;       // [mr][vw]
-  uint8_t* s_fo = reinterpret_cast<uint8_t*>(s_mv + mr * vw);  // [kRows][TX]
+  const bool read_first = mlag >= kRows;
+  extern __shared__ __align__(128) float smem[];
+  float* s_d = smem;                                                   // [dr][SW]
+  float* s_m = s_d + dr * SW;                                          // [mr][SW]
+  uint8_t* s_mark = reinterpret_cast<uint8_t*>(s_m + mr * SW);         // [2][kRows][SW]
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_mark + 2 * kRows * SW);  // [ng]
 
-  // block -> (segment, column strip, band of rows); blocks of a segment run
-  // strip by strip, band fastest
-  const int bid = blockIdx.x;
-  int s = 0;
-  while (s + 1 < tab.n && bid >= tab.first_block[s + 1]) ++s;
-  const int local = bid - tab.first_block[s];
-  const int ct = local / n_bands;
-  const int band = local - ct * n_bands;
-  const int col0 = tab.col0[s];
-  const int ns = tab.ns[s];
-  const int x0 = ct * TX;                      // first segment column of the strip
-  const int width = min(TX, ns - x0);
-  const int yb = band * band_rows;             // first cropped row of the band
-  const int rows = min(band_rows, nvu - yb);
-  const size_t plane = static_cast<size_t>(blockIdx.y) * nv * nr;
+  const int band = blockIdx.x % a.n_bands;
+  const int xt = (blockIdx.x / a.n_bands) * a.tx - a.halo;  // RDM column of tile column 0
+  const int yb = band * a.band_rows;                        // first cropped row of the band
+  const int rows = min(a.band_rows, a.nvu - yb);
+  const size_t plane = static_cast<size_t>(blockIdx.y) * a.nv * a.nr;
+  const int tid = threadIdx.x;
+  const int c0 = kCols * tid;        // this thread's tile columns c0 .. c0+3
+  const int x0 = xt + c0;            // and their RDM columns
+  const bool out_grp = c0 >= a.halo && c0 < a.halo + a.tx && x0 < a.nr;
+  const bool vec = a.tma && x0 + kCols <= a.nr;  // one 32-bit store of four flags
 
-  // this thread's column: staged column c, segment column x (wrapped once)
-  const int c = threadIdx.x;
-  const bool staged = c < sw;
-  const int x = x0 - hr + c;
-  const int xs = x < 0 || x >= ns ? wrap(x, ns) : x;
-  const float* src = rdm + plane + static_cast<size_t>(lo) * nr + col0 + xs;
-  const int cx = c - (hr - e);                 // source index, if 0 <= cx < vw
-  const bool source = cx >= 0 && cx < vw;
-  const int tx = c - hr;                       // output index, if 0 <= tx < width
-  const bool output = tx >= 0 && tx < width;
+  // the segment of each column, [sl, sh); sl == sh outside the RDM
+  int sl[kCols], sh[kCols];
+  uint32_t src = 0;  // columns whose hits may mark an output column: bit 4k + j
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    sl[j] = sh[j] = 0;
+    for (int s = 0; s < a.n_seg; ++s)
+      if (x0 + j >= a.col0[s] && x0 + j < a.cend[s]) {
+        sl[j] = a.col0[s];
+        sh[j] = a.cend[s];
+      }
+    if (sl[j] < sh[j] && c0 + j >= a.halo - e && c0 + j < a.halo + a.tx + e)
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) src |= 1u << (4 * k + j);
+  }
+
+  if (tid == 0) {
+    for (int s = 0; s < ng; ++s) mbar_init(&full[s], a.tma ? 1 : kThreads);
+    mbar_fence_init();
+  }
+#pragma unroll
+  for (int k = 0; k < 2 * kRows; ++k) *reinterpret_cast<uint32_t*>(s_mark + k * SW + c0) = 0;
+  __syncthreads();
+
+  auto store_flags = [&](uint8_t* base, size_t off, uint32_t bytes) {
+    if (vec) {
+      *reinterpret_cast<uint32_t*>(base + off) = bytes;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (x0 + j < a.nr) base[off + j] = static_cast<uint8_t>(bytes >> (8 * j));
+    }
+  };
 
   // the clutter rows outside [lo, lo + nvu) carry no flags
-  if (band == 0 && output) {
-    const size_t o = plane + col0 + x0 + tx;
-    for (int k = 0; k < nv - nvu; ++k) {
-      const size_t ok = o + static_cast<size_t>(k < lo ? k : k + nvu) * nr;
-      flags[ok] = 0;
-      vflags[ok] = 0;
+  if (band == 0 && out_grp) {
+    for (int k = 0; k < a.nv - a.nvu; ++k) {
+      const size_t o = plane + static_cast<size_t>(k < a.lo ? k : k + a.nvu) * a.nr + x0;
+      store_flags(a.flags, o, 0u);
+      store_flags(a.vflags, o, 0u);
     }
   }
 
-  // Step i loads cropped row yb - g - r + i (wrapped into [0, nvu)) into
-  // ring slot i % dr and forms the mean of the window ending there; from
-  // step 2(g+r) on it also decides cell y = yb + i - 2(g+r), whose value is
-  // g+r slots back and whose left mean 2g+r+1 means back.  The steps run
-  // kRows at a time: kRows independent chains per thread, one pair of
-  // barriers per group.
-  const int n_steps = rows + 2 * (g + r);
-  const int lag = g + r;                       // steps from a row's copy to its cell
-  const int mlag = 2 * g + r + 1;              // steps from a cell's left mean to it
-  // the copies: step, ring slot and source row advance together
-  int i_load = 0;
-  int slot_load = 0;
-  const float* p_load = src + static_cast<size_t>(wrap(yb - g - r, nvu)) * nr;
-  const float* const p_end = src + static_cast<size_t>(nvu) * nr;
-  auto issue = [&]() {
-    if (staged && i_load < n_steps) cp_async4(s_d + slot_load * sw + c, p_load);
-    cp_async_commit();
-    ++i_load;
-    if (++slot_load == dr) slot_load = 0;
-    p_load += nr;
-    if (p_load == p_end) p_load = src;
-  };
+  // Step i stages cropped row yb - lag + i (wrapped into [0, nvu)) into ring
+  // row i % dr and forms the mean of the window ending there; from step
+  // 2 lag on it also decides cell y = yb + i - 2 lag, whose value is lag
+  // rows back and whose left mean mlag means back.  Steps run kRows at a
+  // time, and the kRows rows of one go in by one mbarrier: by TMA, one row a
+  // lane of warp 0, or by every thread's cp.async of its columns.
+  const int n_steps = rows + 2 * lag;
+  int i_stage = 0, g_stage = 0, y_stage = wrap(yb - lag, a.nvu);
+  auto stage = [&]() {  // the next kRows steps' rows
+    if (i_stage < n_steps) {
+      const int n = min(kRows, n_steps - i_stage);
+      float* dst = s_d + g_stage * kRows * SW;
+      uint64_t* bar = &full[g_stage];
+      if (a.tma) {
+        // one box for the step's rows where they are neighbours in the RDM
+        // and all or none re-notched (and a row is one box wide), else a
+        // box a row, one a lane
+        const int row0 = a.lo + y_stage;
+        const bool none = row0 + n <= a.zero_lo || row0 >= a.zero_hi;
+        const bool all = row0 >= a.zero_lo && row0 + n <= a.zero_hi;
+        const bool whole = SW <= kBox && n == kRows && y_stage + kRows <= a.nvu && (none || all);
+        if (tid < 32) {
+          if (tid == 0) mbar_arrive_expect_tx(bar, n * SW * 4);
+          __syncwarp();
+          if (whole) {
+            if (tid == 0)
+              rsp::tma_load_2d(dst, &maps.step, xt,
+                               all ? -kRows : static_cast<int>(blockIdx.y) * a.nv + row0, bar);
+          } else if (tid < n) {
+            const int row = a.lo + wrap(y_stage + tid, a.nvu);
+            // a re-notched row: row -1, a box wholly outside the tensor
+            const int grow = row >= a.zero_lo && row < a.zero_hi
+                                 ? -1 : static_cast<int>(blockIdx.y) * a.nv + row;
 #pragma unroll
-  for (int k = 0; k < kPrefetch; ++k) issue();
-
-  // ring slots of step i0 (data, mean), of its cell's row and left mean
-  int sd = 0, sm = 0, sd_cell = dr - lag % dr, sm_left = mr - mlag % mr;
-  auto next = [](int slot, int n, int ring) { slot += n; return slot >= ring ? slot - ring : slot; };
-  size_t o_next = plane + static_cast<size_t>(lo + yb) * nr + col0 + x0 + tx;  // next cell out
-  const float rf = static_cast<float>(r);
-  float w[R > 0 ? R + kRows - 1 : 1] = {};     // the sliding window, R > 0
-  for (int i0 = 0; i0 < n_steps; i0 += kRows) {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) issue();
-    cp_async_wait<kPrefetch>();                // this thread's rows i0 .. i0+kRows-1 landed
-    float mean[kRows];
-    if (source) {
-      if constexpr (R > 0) {
-#pragma unroll
-        for (int j = 0; j < R - 1; ++j) w[j] = w[j + kRows];
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) w[R - 1 + k] = s_d[next(sd, k, dr) * sw + c];
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) {
-          float acc = w[R - 1 + k];
-#pragma unroll
-          for (int j = R - 2; j >= 0; --j) acc = __fadd_rn(acc, w[j + k]);
-          mean[k] = __fdiv_rn(acc, rf);
+            for (int b = 0; b < SW / kSlotBox; ++b)
+              rsp::tma_load_2d(dst + tid * SW + b * kSlotBox, &maps.row, xt + b * kSlotBox,
+                               grow, bar);
+          }
         }
       } else {
+        for (int k = 0; k < n; ++k) {
+          const int row = a.lo + wrap(y_stage + k, a.nvu);
+          const bool zero = row >= a.zero_lo && row < a.zero_hi;
+          const float* src_row = a.rdm + plane + static_cast<size_t>(row) * a.nr;
 #pragma unroll
-        for (int k = 0; k < kRows; ++k) {
-          int sl = next(sd, k, dr);
-          float acc = s_d[sl * sw + c];
-          for (int j = 1; j < r; ++j) {
-            sl = sl == 0 ? dr - 1 : sl - 1;
-            acc = __fadd_rn(acc, s_d[sl * sw + c]);
+          for (int j = 0; j < kCols; ++j) {
+            const bool ok = !zero && x0 + j >= 0 && x0 + j < a.nr;
+            cp_async4(dst + k * SW + c0 + j, ok ? src_row + x0 + j : a.rdm, ok ? 4 : 0);
           }
-          mean[k] = __fdiv_rn(acc, rf);
         }
+        rsp::cp_async_mbar_arrive_noinc(bar);
       }
-#pragma unroll
-      for (int k = 0; k < kRows; ++k) s_mv[next(sm, k, mr) * vw + cx] = mean[k];
     }
-    const int sd_c = sd_cell, sm_l = sm_left;
-    sd = next(sd, kRows, dr);
-    sm = next(sm, kRows, mr);
-    sd_cell = next(sd_cell, kRows, dr);
-    sm_left = next(sm_left, kRows, mr);
-    if (i0 + kRows <= 2 * lag) continue;       // still filling the pipeline
+    i_stage += kRows;
+    if (++g_stage == ng) g_stage = 0;
+    y_stage = wrap(y_stage + kRows, a.nvu);
+  };
+  for (int k = 0; k < kPrefetch; k += kRows) stage();
 
-    uint8_t vf[kRows];
+  auto next = [](int slot, int n, int ring) {
+    slot += n;
+    return slot >= ring ? slot - ring : slot;
+  };
+  // the ring step of step i0 (and the parity of its mbarrier's phase); the
+  // ring rows of its cell, of its mean, of its cell's left mean
+  int sg = 0, ph = 0, sc = (dr - lag % dr) % dr, sm = 0, sml = (mr - mlag % mr) % mr;
+  const float rf = static_cast<float>(r);
+  const bool rz = 0.f >= __fmul_rn(0.f, a.t);  // a re-notched cell's range flag
+  float w[kCols][R > 0 ? R - 1 + kRows : 1];       // the sliding windows, R > 0
+#pragma unroll
+  for (int j = 0; j < kCols; ++j)
+#pragma unroll
+    for (int q = 0; q < (R > 0 ? R - 1 + kRows : 1); ++q) w[j][q] = 0.f;
+  int buf = 0;
+  for (int i0 = 0; i0 < n_steps; i0 += kRows) {
+    stage();  // into the ring step the last step's barrier freed
+    const int n_here = min(kRows, n_steps - i0);
+    mbar_wait(&full[sg], ph);
+    const float* rows_here = s_d + sg * kRows * SW + c0;
+    Cols left[kRows];
+    if (read_first) {
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) left[k] = load_cols(s_m + next(sml, k, mr) * SW + c0);
+    }
+    Cols mean[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      if constexpr (R > 0) {
+        const Cols v = load_cols(rows_here + k * SW);
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          w[j][R - 1 + k] = v.v[j];
+          float acc = w[j][R - 1 + k];
+#pragma unroll
+          for (int q = R - 2; q >= 0; --q) acc = __fadd_rn(acc, w[j][q + k]);
+          mean[k].v[j] = div_r<R>(acc, rf);
+        }
+      } else {
+        int sq = sg * kRows + k;
+        Cols acc = load_cols(s_d + sq * SW + c0);
+        for (int q = 1; q < r; ++q) {
+          sq = sq == 0 ? dr - 1 : sq - 1;
+          const Cols v = load_cols(s_d + sq * SW + c0);
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) acc.v[j] = __fadd_rn(acc.v[j], v.v[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) mean[k].v[j] = __fdiv_rn(acc.v[j], rf);
+      }
+      store_cols(s_m + next(sm, k, mr) * SW + c0, mean[k]);
+    }
+    if constexpr (R > 0) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+#pragma unroll
+        for (int q = 0; q < R - 1; ++q) w[j][q] = w[j][q + kRows];
+    }
+    if (!read_first) {
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) left[k] = load_cols(s_m + next(sml, k, mr) * SW + c0);
+    }
+
+    // the cells of the step's rows: bit 4k + j
+    uint32_t vf = 0;
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const int i = i0 + k;
-      const int y = yb + i - 2 * lag;
-      vf[k] = 0;
-      if (source && y >= yb && i < n_steps) {
-        const float left = s_mv[next(sm_l, k, mr) * vw + cx];
-        vf[k] = cfar_flag(s_d[next(sd_c, k, dr) * sw + c], left, mean[k], y - lag >= 0,
-                          y + lag <= nvu - 1, method, t);
+      if (i >= 2 * lag && k < n_here) {
+        const int y = yb + i - 2 * lag;
+        const bool lok = y - lag >= 0, rok = y + lag <= a.nvu - 1;
+        const Cols d = load_cols(s_d + next(sc, k, dr) * SW + c0);
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          if (cfar_flag(d.v[j], left[k].v[j], mean[k].v[j], lok, rok, a.method, a.t))
+            vf |= 1u << (4 * k + j);
       }
-      if (output) s_fo[k * TX + tx] = 0;
     }
-    __syncthreads();  // every column of the rows staged (the copies of others too), fo clear
+    uint8_t* marks = s_mark + buf * kRows * SW;
 
-    // every velocity hit marks its strongest range-flagged neighbour; the
-    // range flag of candidate xc (staged column sc) from its left window,
-    // ending at xc-g-1, and its right one, ending at xc+g+r
-    if (range_detect && x >= 0 && x < ns) {
+    // every velocity hit marks its strongest range-flagged neighbour
+    if (a.range_detect) {
+      uint32_t hits = vf & src;
+      while (hits) {
+        const int bit = __ffs(hits) - 1;
+        hits &= hits - 1;
+        const int k = bit >> 2, j = bit & 3;
+        const int x = x0 + j, c = c0 + j;
+        int lo_s = sl[0], hi_s = sh[0];
+#pragma unroll
+        for (int q = 1; q < kCols; ++q)
+          if (j == q) lo_s = sl[q], hi_s = sh[q];
+        const int rrow = a.lo + yb + i0 + k - 2 * lag;
+        int best_off = kNoWinner;
+        if (rrow >= a.zero_lo && rrow < a.zero_hi) {
+          if (rz) best_off = max(-e, lo_s - x);   // every candidate ties at 0
+        } else {
+          const float* row = s_d + next(sc, k, dr) * SW;  // the staged row of the cell
+          const float* grow = a.rdm + plane + static_cast<size_t>(rrow) * a.nr;
+          const int ns = hi_s - lo_s;
+          float best = 0.f;
+          for (int dd = -e; dd <= e; ++dd) {
+            const int xc = x + dd;
+            if (xc < lo_s || xc >= hi_s) continue;
+            const int cc = c + dd;
+            const int xs = xc - lo_s;
+            const bool lok = xs - lag >= 0, rok = xs + lag <= ns - 1;
+            float lm = 0.f, rm = 0.f;
+            if (lok) lm = window_mean<R>(row + cc - g - 1, r, rf);
+            if (rok) rm = window_mean<R>(row + cc + g + r, r, rf);
+            if (!lok && !rok) {
+              // a segment narrower than 2 lag + 1: both windows wrap in it
+              auto cell = [&](int xi) {
+                const int xw = lo_s + wrap(xi - lo_s, ns);
+                const int tc = xw - xt;
+                return tc >= 0 && tc < SW ? row[tc] : grow[xw];
+              };
+              float la = cell(xc - g - 1), ra = cell(xc + g + r);
+              for (int q = 1; q < r; ++q) {
+                la = __fadd_rn(la, cell(xc - g - 1 - q));
+                ra = __fadd_rn(ra, cell(xc + g + r - q));
+              }
+              lm = div_r<R>(la, rf);
+              rm = div_r<R>(ra, rf);
+            }
+            const float val = row[cc];
+            if (!cfar_flag(val, lm, rm, lok, rok, a.method, a.t)) continue;
+            if (best_off == kNoWinner || val > best) {
+              best = val;
+              best_off = dd;
+            }
+          }
+        }
+        const int target = c + best_off;  // the marked cell
+        if (best_off != kNoWinner && target >= a.halo && target < a.halo + a.tx)
+          marks[k * SW + target] = 1;
+      }
+    }
+    __syncthreads();  // the marks are in; the step's finished rows may be restaged
+
+    if (out_grp) {
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
-        if (!vf[k]) continue;
-        const float* row = s_d + next(sd_c, k, dr) * sw;  // the staged row of the cell
-        int best_off = kNoWinner;
-        float best = 0.f;
-        for (int dd = -e; dd <= e; ++dd) {
-          const int xc = x + dd;
-          if (xc < 0 || xc >= ns) continue;
-          const int sc = c + dd;
-          const float val = row[sc];
-          if (!cfar_flag(val, window_mean<R>(row + sc - g - 1, r, rf),
-                         window_mean<R>(row + sc + g + r, r, rf), xc - lag >= 0,
-                         xc + lag <= ns - 1, method, t))
-            continue;
-          if (best_off == kNoWinner || val > best) {
-            best = val;
-            best_off = dd;
-          }
+        const int i = i0 + k;
+        if (i < 2 * lag || k >= n_here) continue;
+        const size_t o = plane + static_cast<size_t>(a.lo + yb + i - 2 * lag) * a.nr + x0;
+        const uint32_t vb = flag_bytes(vf >> (4 * k));
+        uint32_t fb = vb;
+        if (a.range_detect) {
+          auto* mk = reinterpret_cast<uint32_t*>(marks + k * SW + c0);
+          fb = *mk;
+          *mk = 0;
         }
-        const int target = tx + best_off;  // the marked cell
-        if (best_off != kNoWinner && target >= 0 && target < TX) s_fo[k * TX + target] = 1;
+        store_flags(a.flags, o, fb);
+        store_flags(a.vflags, o, vb);
       }
     }
-    __syncthreads();  // the marks are in; the rows' staged slots may be refilled after this
-
-    // a warp stores 32 neighbouring bytes of both maps per row
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-      const int i = i0 + k;
-      if (i < 2 * lag || i >= n_steps) continue;
-      if (output) {
-        flags[o_next] = range_detect ? s_fo[k * TX + tx] : vf[k];
-        vflags[o_next] = vf[k];
-      }
-      o_next += nr;
+    buf ^= 1;
+    if (++sg == ng) {
+      sg = 0;
+      ph ^= 1;
     }
+    sc = next(sc, kRows, dr);
+    sm = next(sm, kRows, mr);
+    sml = next(sml, kRows, mr);
   }
-  cp_async_wait<0>();
 }
 
-template <int TX, int R, int G, int E>
-cudaError_t launch(const float* rdm, uint8_t* flags, uint8_t* vflags, const SegmentTable& tab,
-                   int n_blocks, int batch, int nv, int nr, int lo, int nvu, int n_bands,
-                   int band_rows, int r, int g, int method, float t, int e, int range_detect,
+// Counts the float32 bit patterns x where div5(x) and __fdiv_rn(x, 5.0f)
+// differ in any bit, over all 2^32 of them, into *bad.
+__global__ void check_div5_kernel(unsigned long long* bad) {
+  unsigned long long n = 0;
+  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
+  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += stride) {
+    const float x = __uint_as_float(static_cast<uint32_t>(i));
+    n += __float_as_uint(div5(x)) != __float_as_uint(__fdiv_rn(x, 5.0f));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(bad, n);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime loaded, looked up once
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+template <int SW, int R, int G, int E>
+cudaError_t launch(const Maps& maps, const CfarArgs& args, int n_blocks, int batch,
                    cudaStream_t stream) {
-  const int smem = smem_bytes(TX, r, g, e);
+  const int smem = smem_bytes(SW, args.r, args.g);
   // all of the SM's 228 KB to shared memory, and room for this call's
   // block; set once per build and size (a benign race between threads)
   static int smem_set = -1;
   if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(cascaded_cfar_kernel<TX, R, G, E>,
+    cudaError_t err = cudaFuncSetAttribute(cascaded_cfar_kernel<SW, R, G, E>,
                                            cudaFuncAttributePreferredSharedMemoryCarveout,
                                            cudaSharedmemCarveoutMaxShared);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(cascaded_cfar_kernel<TX, R, G, E>,
+      err = cudaFuncSetAttribute(cascaded_cfar_kernel<SW, R, G, E>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
-  const int threads = block_threads(TX, r, g, e);
-  cascaded_cfar_kernel<TX, R, G, E><<<dim3(n_blocks, batch), threads, smem, stream>>>(
-      rdm, flags, vflags, tab, nv, nr, lo, nvu, n_bands, band_rows, r, g, method, t, e,
-      range_detect);
+  cascaded_cfar_kernel<SW, R, G, E><<<dim3(n_blocks, batch), SW / kCols, smem, stream>>>(
+      maps, args);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared-memory bytes of one block of tx output columns.
-extern "C" int rsp_cascaded_cfar_smem_bytes(int tx, int r, int g, int e) {
-  return smem_bytes(tx, r, g, e);
+// The number of float32 bit patterns where B1's division by 5 differs from
+// __fdiv_rn(x, 5.0f), all 2^32 counted, into *bad (an unsigned 64-bit
+// integer on the card, zeroed by the caller).  Returns a cudaError_t.
+extern "C" int rsp_check_div5(void* bad, void* stream) {
+  check_div5_kernel<<<1056, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(bad));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared-memory bytes of one block staging sw columns a row.
+extern "C" int rsp_cascaded_cfar_smem_bytes(int sw, int r, int g) {
+  return smem_bytes(sw, r, g);
 }
 
 // One launch over all n_seg segments of a (batch, nv, nr) f32 RDM; flags and
-// vflags are (batch, nv, nr) bytes.  segments holds col0[n_seg], ns[n_seg],
-// first_block[n_seg + 1] (the block map of kernels/cfar.py::cfar_plan: strips
-// of tx columns, bands of band_rows rows).  Returns a cudaError_t.
+// vflags are (batch, nv, nr) bytes.  segments holds col0[n_seg] and
+// end[n_seg] (half-open, tiling [0, nr)).  The block map is
+// kernels/cfar.py::cfar_plan's: strips of sw - 2 halo output columns
+// (halo = 2e+r+g rounded up to 4), bands of band_rows cropped rows.  Rows
+// [zero_lo, zero_hi) read as 0.0.  tma: stage by TMA (nr a multiple of 4,
+// rdm 16-byte aligned), else by cp.async.  Returns a cudaError_t.
 extern "C" int rsp_cascaded_cfar(const void* rdm, void* flags, void* vflags, int batch, int nv,
                                  int nr, int lo, int nvu, int n_seg, const int* segments,
-                                 int tx, int band_rows, int r, int g, int method, float t,
-                                 int e, int range_detect, void* stream) {
-  if (n_seg < 1 || n_seg > kMaxSegments || band_rows < 1)
+                                 int sw, int band_rows, int r, int g, int method, float t,
+                                 int e, int range_detect, int zero_lo, int zero_hi, int tma,
+                                 void* stream) {
+  const int halo = (2 * e + r + g + 3) / 4 * 4;
+  const int tx = sw - 2 * halo;
+  if (n_seg < 1 || n_seg > kMaxSegments || band_rows < 1 || tx < 4 || batch < 1 || nvu < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  SegmentTable tab{};
-  tab.n = n_seg;
+  if (tma && (nr % 4 != 0 || reinterpret_cast<uintptr_t>(rdm) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CfarArgs args{};
+  args.rdm = static_cast<const float*>(rdm);
+  args.flags = static_cast<uint8_t*>(flags);
+  args.vflags = static_cast<uint8_t*>(vflags);
+  args.nv = nv;
+  args.nr = nr;
+  args.lo = lo;
+  args.nvu = nvu;
+  args.n_bands = (nvu + band_rows - 1) / band_rows;
+  args.band_rows = band_rows;
+  args.halo = halo;
+  args.tx = tx;
+  args.r = r;
+  args.g = g;
+  args.e = e;
+  args.method = method;
+  args.t = t;
+  args.range_detect = range_detect;
+  args.zero_lo = zero_lo;
+  args.zero_hi = zero_hi;
+  args.tma = tma;
+  args.n_seg = n_seg;
   for (int i = 0; i < n_seg; ++i) {
-    tab.col0[i] = segments[i];
-    tab.ns[i] = segments[n_seg + i];
+    args.col0[i] = segments[i];
+    args.cend[i] = segments[n_seg + i];
   }
-  for (int i = 0; i <= n_seg; ++i) tab.first_block[i] = segments[2 * n_seg + i];
-  const int n_blocks = tab.first_block[n_seg];
-  const int n_bands = (nvu + band_rows - 1) / band_rows;
-  const auto* x = static_cast<const float*>(rdm);
-  auto* f = static_cast<uint8_t*>(flags);
-  auto* v = static_cast<uint8_t*>(vflags);
+  Maps maps{};
+  if (tma) {
+    const EncodeTiled encode = encoder();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(nr),
+                                static_cast<cuuint64_t>(batch) * static_cast<cuuint64_t>(nv)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(nr) * 4};
+    const cuuint32_t elem[2] = {1, 1};
+    for (int rows = 1; rows <= kRows; rows += kRows - 1) {
+      const cuuint32_t box[2] = {static_cast<cuuint32_t>(sw < kBox ? sw : kBox),
+                                 static_cast<cuuint32_t>(rows)};
+      if (encode(rows == 1 ? &maps.row : &maps.step, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                 const_cast<void*>(rdm), dims, strides, box, elem,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+          CUDA_SUCCESS)
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const int n_blocks = (nr + tx - 1) / tx * args.n_bands;
   const auto st = static_cast<cudaStream_t>(stream);
   // r = 5, g = 7, e = 1 (every shipped profile) is compiled for those
   // windows; any other configuration takes them at run time
   const bool shipped = r == 5 && g == 7 && e == 1;
-#define RSP_CFAR_STRIP(TX_)                                                                 \
-  if (tx == TX_)                                                                            \
-    return static_cast<int>(                                                                \
-        shipped ? launch<TX_, 5, 7, 1>(x, f, v, tab, n_blocks, batch, nv, nr, lo, nvu,      \
-                                       n_bands, band_rows, r, g, method, t, e,              \
-                                       range_detect, st)                                    \
-                : launch<TX_, 0, 0, 0>(x, f, v, tab, n_blocks, batch, nv, nr, lo, nvu,      \
-                                       n_bands, band_rows, r, g, method, t, e,              \
-                                       range_detect, st));
-  RSP_CFAR_STRIP(256)
-  RSP_CFAR_STRIP(128)
-  RSP_CFAR_STRIP(64)
-#undef RSP_CFAR_STRIP
+#define RSP_CFAR_TILE(SW_)                                                                \
+  if (sw == SW_)                                                                          \
+    return static_cast<int>(shipped ? launch<SW_, 5, 7, 1>(maps, args, n_blocks, batch, st) \
+                                    : launch<SW_, 0, 0, 0>(maps, args, n_blocks, batch, st));
+  RSP_CFAR_TILE(128)
+  RSP_CFAR_TILE(256)
+  RSP_CFAR_TILE(512)
+  RSP_CFAR_TILE(1024)
+#undef RSP_CFAR_TILE
   return static_cast<int>(cudaErrorInvalidValue);
 }

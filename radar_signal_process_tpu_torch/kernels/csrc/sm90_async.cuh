@@ -1,6 +1,7 @@
-// Hopper's asynchronous machinery for B2 (rdm.cu): mbarriers, bulk copies
-// by the TMA engine, warpgroup MMA (wgmma) descriptors and the TF32 wgmma
-// with A in registers.  sm_90a only (wgmma does not exist on plain sm_90).
+// Hopper's asynchronous machinery for B2 (rdm.cu) and B1 (cfar.cu):
+// mbarriers, bulk and tensor copies by the TMA engine, warpgroup MMA (wgmma)
+// descriptors and the TF32 wgmma with A in registers.  sm_90a only (wgmma
+// does not exist on plain sm_90).
 //
 // wgmma.mma_async.m64nNk8.f32.tf32.tf32, A from registers ("RS"):
 //   * a warpgroup (4 consecutive warps, the first with warp % 4 == 0) issues
@@ -79,6 +80,28 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// A 2-D tile copy by the TMA engine, global -> shared, of the box that
+// `map` (a __grid_constant__ CUtensorMap) describes, whose first element is
+// at column c0 and row c1 of the tensor; completes on `bar` as the box's
+// bytes.  Coordinates may lie outside the tensor, even wholly: those
+// elements are zero-filled (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) and not read.
+// dst is 128-byte aligned.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread has issued so far has
+// landed; the arrival is counted in the barrier's initial count (.noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 // --------------------------------------------------------------------- wgmma

@@ -7,6 +7,10 @@ ends), the cascaded CFAR (B1) runs per pulse segment, and the strongest hits
 of the *un-renotched* RDM form the detection list.  ``n_clutter`` follows
 ``MTD_0v_num = floor(MTD_V / deltaV)`` (``main_cfar.m:56-58``).
 
+The re-notch is no separate pass: :func:`renotch_rows` turns the mask into
+the one run of rows the CFAR reads, and B1 reads those as 0.0
+(``cascaded_cfar2d(..., zero_rows=)``), on the card without fetching them.
+
 :func:`make_split_detector` and :func:`make_cascade_detector` are the flag
 stage alone, in either layout: B1 on a CUDA tensor, and on a CPU tensor the
 split form of ``ops.cfar`` (the JAX package's CPU detector) or, in the
@@ -15,6 +19,7 @@ transposed layout, the native C++ cascade (``kernels.native_cfar``).
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os
@@ -57,6 +62,32 @@ def renotch_mask(
     return notch_mask_unshifted(n_v, n_clutter)
 
 
+@functools.lru_cache(maxsize=64)
+def renotch_rows(
+    profile: RadarProfile, n_v: int, n_clutter: int, renotch_divisor: int | None
+) -> Optional[Tuple[int, int]]:
+    """The rows of :func:`renotch_mask` that the CFAR reads, as one half-open
+    run ``(a, b)`` inside the crop ``[n_clutter + 1, n_v - n_clutter)``, or
+    None when the re-notch zeroes none of them.
+
+    A shifted spectrum's notch is one run around zero velocity (G2/G1: rows
+    148-182 of 332); an unshifted one's two runs lie outside the crop, so
+    the re-notch leaves B1's flags as they are.  Raises when the zeroed rows
+    in the crop are not one run.
+    """
+    mask = renotch_mask(profile, n_v, n_clutter, renotch_divisor)
+    if mask is None:
+        return None
+    lo, hi = n_clutter + 1, n_v - n_clutter
+    zero = np.flatnonzero(mask[lo:hi] == 0) + lo
+    if zero.size == 0:
+        return None
+    if zero[-1] - zero[0] + 1 != zero.size:
+        raise ValueError(f"the re-notch zeroes rows {zero.tolist()} of the crop [{lo}, {hi}): "
+                         "not one run")
+    return int(zero[0]), int(zero[-1]) + 1
+
+
 def _segments(profile: RadarProfile, n_range: int) -> Tuple[Tuple[int, int], ...]:
     """The profile's CFAR segments clipped to an RDM ``n_range`` wide, as
     slicing clips them, empty ones dropped (one segment by default)."""
@@ -65,12 +96,11 @@ def _segments(profile: RadarProfile, n_range: int) -> Tuple[Tuple[int, int], ...
 
 
 def _cascade(
-    rdm: torch.Tensor, keep: Optional[torch.Tensor], profile: RadarProfile,
+    rdm: torch.Tensor, zero_rows: Optional[Tuple[int, int]], profile: RadarProfile,
     n_clutter: int, cfg: CFARConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    if keep is not None:
-        rdm = rdm * keep[:, None]
-    return cascaded_cfar2d(rdm, cfg, n_clutter, _segments(profile, rdm.shape[-1]))
+    return cascaded_cfar2d(rdm, cfg, n_clutter, _segments(profile, rdm.shape[-1]),
+                           zero_rows=zero_rows)
 
 
 def make_split_detector(
@@ -86,30 +116,31 @@ def make_split_detector(
 
     ``transposed=True`` takes (..., n_range, n_velocity) RDMs and returns
     flags in that layout.  On a CUDA tensor the detector is
-    :func:`detect_rdm`'s re-notch and one B1 launch, transposing in and out
-    when ``transposed`` (free when the RDM is a transposed view of a
-    standard-layout tensor); on a CPU tensor it runs
+    :func:`detect_rdm`'s one B1 launch with the re-notch fused, transposing
+    in and out when ``transposed`` (free when the RDM is a transposed view
+    of a standard-layout tensor); on a CPU tensor it runs the re-notch and
     the split form, ``segmented_cfar_flags`` then ``segmented_cfar_select``.
-    The re-notch masks live on ``device``.
+    Neither copies anything from the host per call.
     """
-    device = resolve_device(device)
+    resolve_device(device)
     cfg = cfg or profile.cfar
     v_dim, r_dim = (-1, -2) if transposed else (-2, -1)
     masks: dict = {}
 
-    def keep(n_v: int) -> Optional[torch.Tensor]:
+    def keep(n_v: int) -> Optional[torch.Tensor]:  # the CPU route's mask
         if n_v not in masks:
             m = renotch_mask(profile, n_v, n_clutter, renotch_divisor)
-            masks[n_v] = None if m is None else torch.as_tensor(m, dtype=REAL, device=device)
+            masks[n_v] = None if m is None else torch.as_tensor(m, dtype=REAL)
         return masks[n_v]
 
     def detect(rdm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        k = keep(rdm.shape[v_dim])
         if rdm.device.type == "cuda":
             x = rdm.mT if transposed else rdm
-            flags, vflags = _cascade(x.contiguous(), k, profile, n_clutter, cfg)
+            zero = renotch_rows(profile, rdm.shape[v_dim], n_clutter, renotch_divisor)
+            flags, vflags = _cascade(x.contiguous(), zero, profile, n_clutter, cfg)
             return (flags.mT, vflags.mT) if transposed else (flags, vflags)
         segments = _segments(profile, rdm.shape[r_dim])
+        k = keep(rdm.shape[v_dim])
         if k is not None:
             rdm = rdm * (k if transposed else k[:, None])
         vflag, rflag = segmented_cfar_flags(rdm, segments, cfg, n_clutter, transposed=transposed)
@@ -181,17 +212,16 @@ def detect_rdm(
     renotch_divisor: int | None = RENOTCH_DIVISOR,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RDM (..., n_v, n_r) -> bool (cascade flags, velocity-only flags):
-    the re-notch, then B1 over the profile's CFAR segments with ``cfg``
-    (default ``profile.cfar``)."""
-    keep = renotch_mask(profile, rdm.shape[-2], n_clutter, renotch_divisor)
-    if keep is not None:
-        keep = torch.as_tensor(keep, dtype=REAL, device=rdm.device)
-    return _cascade(rdm, keep, profile, n_clutter, cfg or profile.cfar)
+    B1 over the profile's CFAR segments with ``cfg`` (default
+    ``profile.cfar``), the re-notch rows read as 0.0.  It copies nothing
+    from the host, so it enqueues without synchronising the stream."""
+    zero = renotch_rows(profile, rdm.shape[-2], n_clutter, renotch_divisor)
+    return _cascade(rdm, zero, profile, n_clutter, cfg or profile.cfar)
 
 
 class Detector(nn.Module):
-    """RDM stack -> ``(flags, vflags, DetectionList)``; the re-notch mask of
-    the profile's Doppler extent is a buffer."""
+    """RDM stack -> ``(flags, vflags, DetectionList)``; the re-notch rows of
+    the profile's Doppler extent (``renotch_rows``) are fused into B1."""
 
     def __init__(
         self,
@@ -207,16 +237,12 @@ class Detector(nn.Module):
         self.n_clutter = n_clutter
         self.max_detections = max_detections
         self.cfg = cfg or profile.cfar
-        n_v = profile.mtd.fft_length or profile.prt_per_frame
-        keep = renotch_mask(profile, n_v, n_clutter, renotch_divisor)
-        self.register_buffer(
-            "renotch_mask",
-            None if keep is None else torch.as_tensor(keep, dtype=REAL, device=device),
-        )
+        self.renotch_divisor = renotch_divisor
+        self.device = resolve_device(device)  # no tensor lives on it: the re-notch is fused
 
     def forward(self, rdm: torch.Tensor):
-        flags, vflags = _cascade(rdm, self.renotch_mask, self.profile, self.n_clutter,
-                                 self.cfg)
+        zero = renotch_rows(self.profile, rdm.shape[-2], self.n_clutter, self.renotch_divisor)
+        flags, vflags = _cascade(rdm, zero, self.profile, self.n_clutter, self.cfg)
         dets: DetectionList = extract_detections(flags, rdm, self.max_detections)
         return flags, vflags, dets
 
@@ -230,7 +256,7 @@ def make_detector(
     cfg: CFARConfig | None = None,
     device: str | torch.device = "cuda",
 ) -> Detector:
-    """:class:`Detector` for ``profile`` with its buffer on ``device`` (the
+    """:class:`Detector` for ``profile`` on ``device`` (the
     card unless the caller asks for the CPU; a CUDA device that is absent
     raises); ``n_clutter`` defaults to :func:`clutter_cells` of the Doppler
     extent."""

@@ -48,7 +48,9 @@ from radar_signal_process_tpu_torch.config import CFARConfig, RadarProfile
 from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d, extended_segments
 from radar_signal_process_tpu_torch.models.mtd_pipeline import _form_rdm, slice_cpi_window
 from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar_flags, segmented_cfar_select
-from radar_signal_process_tpu_torch.ops.mtd import istc_compensate, mti_cancel, notch_mask
+from radar_signal_process_tpu_torch.ops.mtd import (
+    istc_compensate, mti_cancel, notch_mask, notch_rows,
+)
 from radar_signal_process_tpu_torch.ops.pulse_compression import segmented_pulse_compression
 from radar_signal_process_tpu_torch.ops.windows import make_window
 from radar_signal_process_tpu_torch.parallel.mesh import axis_index, axis_size, mesh_device
@@ -139,9 +141,13 @@ def _peer(mesh: DeviceMesh, axis: str, step: int) -> int:
 
 
 # ------------------------------------------------------------------ halo CFAR
-def halo_exchange(x: torch.Tensor, halo: int, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+def halo_exchange(
+    x: torch.Tensor, halo: int, mesh: DeviceMesh, axis: str, pad: int = 0
+) -> torch.Tensor:
     """Exchange ``halo`` edge columns (last axis) with the ring neighbours
-    along ``axis``; returns the block extended to ``local + 2*halo`` columns.
+    along ``axis``; returns the block extended to ``local + 2*halo + pad``
+    columns, the right halo ``pad`` columns wider (B1 widens its blocks'
+    rows to whole 16 bytes, the stride its TMA staging needs).
 
     Edge shards receive wrapped data in their outer halo; callers keep it
     out by global column index (validity, or B1's dummy segments).  Each rank posts send-right, receive-left,
@@ -152,12 +158,12 @@ def halo_exchange(x: torch.Tensor, halo: int, mesh: DeviceMesh, axis: str) -> to
     n = axis_size(mesh, axis)
     if n == 1:
         # single shard: wrap (masked by validity downstream)
-        return torch.cat([x[..., -halo:], x, x[..., :halo]], dim=-1)
-    if x.shape[-1] < halo:
-        raise ValueError(f"halo {halo} wider than the {x.shape[-1]}-column block")
+        return torch.cat([x[..., -halo:], x, x[..., : halo + pad]], dim=-1)
+    if x.shape[-1] < halo + pad:
+        raise ValueError(f"halo {halo} + {pad} wider than the {x.shape[-1]}-column block")
     group = mesh.get_group(axis)
     right, left = _peer(mesh, axis, 1), _peer(mesh, axis, -1)
-    to_right, to_left = _as_wire(x[..., -halo:]), _as_wire(x[..., :halo])
+    to_right, to_left = _as_wire(x[..., -halo:]), _as_wire(x[..., : halo + pad])
     from_left, from_right = torch.empty_like(to_right), torch.empty_like(to_left)
     ops = [dist.P2POp(dist.isend, to_right, right, group, tag=0),
            dist.P2POp(dist.irecv, from_left, left, group, tag=0),
@@ -199,16 +205,22 @@ def extended_block_cfar(
     n_global: int,
     segments: Sequence[Tuple[int, int]],
     col0: int,
+    local_n: int,
     halo: int,
+    zero_rows: Tuple[int, int] | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B1 once over a halo-extended block (all rows, ``local + 2*halo``
-    columns starting at global column ``col0 - halo``) with the block's
-    segment table; returns the centre columns' ``(flags, vflags)``, equal
-    bit for bit to ``segmented_cfar`` over the whole RDM.  On a CPU tensor
-    B1's wrapper runs its plain version over the same table."""
-    local_n = ext.shape[-1] - 2 * halo
+    """B1 once over a halo-extended block (all rows, ``local_n + 2*halo``
+    columns starting at global column ``col0 - halo``, and any columns past
+    them, ``halo_exchange``'s ``pad``) with the block's segment table, whose
+    last segment takes the columns past; returns the centre columns'
+    ``(flags, vflags)``, equal bit for bit to ``segmented_cfar`` over the
+    whole RDM (re-notched on ``zero_rows``, as B1 reads them): the columns
+    past lie beyond every window of a centre column and of its cascade
+    candidates.  On a CPU tensor B1's wrapper runs its plain version over
+    the same table."""
     table = extended_segments(n_global, segments or ((0, n_global),), col0, local_n, halo)
-    flags, vflags = cascaded_cfar2d(ext.contiguous(), cfg, n_clutter, table)
+    table = table[:-1] + ((table[-1][0], ext.shape[-1]),)
+    flags, vflags = cascaded_cfar2d(ext.contiguous(), cfg, n_clutter, table, zero_rows=zero_rows)
     return flags[..., halo : halo + local_n], vflags[..., halo : halo + local_n]
 
 
@@ -220,6 +232,7 @@ def sharded_cascaded_cfar2d(
     axis: str,
     n_global: int,
     segments: Sequence[Tuple[int, int]] = (),
+    zero_rows: Tuple[int, int] | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Range-sharded cascaded 2-D CFAR, bit-identical to the unsharded op.
 
@@ -228,20 +241,21 @@ def sharded_cascaded_cfar2d(
     ``[0, n_global)``, the reference's pulse-type split) the result matches
     ``ops.cfar.segmented_cfar``; shard boundaries need not align with the
     segments.  Each rank runs B1 once on its halo-extended block
-    (:func:`extended_block_cfar`); with one rank on ``axis`` no column lies
-    outside the block, and B1 runs on it as it is.  Parity with the JAX
-    package's roll form holds above the floor of ROADMAP C3 (each segment
-    wider than 2(ref+guard)+1 columns, the cropped rows more than
-    2(ref+guard)).
+    (:func:`extended_block_cfar`), its rows widened to whole 16 bytes; with
+    one rank on ``axis`` no column lies outside the block, and B1 runs on it
+    as it is.  ``zero_rows`` is B1's: the re-notch fused into its load.
+    Parity with the JAX package's roll form holds above the floor of ROADMAP
+    C3 (each segment wider than 2(ref+guard)+1 columns, the cropped rows
+    more than 2(ref+guard)).
     """
     if axis_size(mesh, axis) == 1:
         return cascaded_cfar2d(rdm_local.contiguous(), cfg, n_clutter,
-                               segments or ((0, n_global),))
+                               segments or ((0, n_global),), zero_rows=zero_rows)
     local_n = rdm_local.shape[-1]
     h = cfg.ref_cells + cfg.guard_cells + 2 * cfg.range_extend_cells
-    ext = halo_exchange(rdm_local, h, mesh, axis)
+    ext = halo_exchange(rdm_local, h, mesh, axis, pad=-(local_n + 2 * h) % 4)
     return extended_block_cfar(ext, cfg, n_clutter, n_global, segments,
-                               axis_index(mesh, axis) * local_n, h)
+                               axis_index(mesh, axis) * local_n, local_n, h, zero_rows)
 
 
 # ----------------------------------------------------------------- pipelines
@@ -286,10 +300,19 @@ def _notch_keep(n: int, divisor: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(notch_mask(n, divisor), device=device)[:, None]
 
 
-def _renotch(rdm: torch.Tensor, divisor: int | None) -> torch.Tensor:
+def _notch(rdm: torch.Tensor, divisor: int | None) -> torch.Tensor:
     """``ops.mtd.zero_velocity_notch`` with the mask built once per shape and
-    device (the detection stage's wide re-notch, ``main_cfar.m:90-91``)."""
+    device."""
     return rdm * _notch_keep(rdm.shape[-2], divisor, rdm.device) if divisor else rdm
+
+
+def _renotch_rows(n_v: int, divisor: int | None) -> Tuple[int, int] | None:
+    """The detection stage's wide re-notch (``ops.mtd.zero_velocity_notch``,
+    ``main_cfar.m:90-91``) as B1's ``zero_rows``, or None for none."""
+    if not divisor:
+        return None
+    lo, hi = notch_rows(n_v, divisor)
+    return lo, hi + 1
 
 
 def make_sharded_pipeline(
@@ -314,8 +337,8 @@ def make_sharded_pipeline(
     ``(dp, None, sp)`` of the (n_beams, n_fft, n_points) outputs.  With
     ``segmented`` the CFAR honours the profile's pulse-type segments
     (dropped when stale, :func:`_cfar_segments`).  ``renotch_divisor``
-    applies the detection stage's wide clutter re-notch before the CFAR,
-    while the returned RDM keeps only the MTD-stage notch.
+    applies the detection stage's wide clutter re-notch in B1's load
+    (``zero_rows``), while the returned RDM keeps only the MTD-stage notch.
     """
     cfg = cfg or profile.cfar
     segments = _cfar_segments(profile, segmented)
@@ -332,7 +355,8 @@ def make_sharded_pipeline(
         pc = slow_to_range(pc, mesh, sp_axis)
         rdm = _form_rdm(pc, profile, p)
         flags, vflags = sharded_cascaded_cfar2d(
-            _renotch(rdm, renotch_divisor), cfg, n_clutter, mesh, sp_axis, n_points, segments)
+            rdm, cfg, n_clutter, mesh, sp_axis, n_points, segments,
+            _renotch_rows(rdm.shape[-2], renotch_divisor))
         return rdm, flags, vflags
 
     return run
@@ -398,7 +422,8 @@ def make_sharded_stream(
             slices = mti_cancel(slices, lag=profile.mtd.mti_lag)
         rdm = _form_rdm(slices, profile, chain(pc_prev.shape[-2]))
         flags, vflags = sharded_cascaded_cfar2d(
-            _renotch(rdm, renotch_divisor), cfg, n_clutter, mesh, sp_axis, n_points, segments)
+            rdm, cfg, n_clutter, mesh, sp_axis, n_points, segments,
+            _renotch_rows(rdm.shape[-2], renotch_divisor))
         return pc_next, rdm, flags, vflags
 
     return compress, step
@@ -533,7 +558,7 @@ def make_pipeline_parallel(
             return torch.fft.fftshift(spec, dim=-2) if profile.mtd.fftshift else spec
 
         def _notched(rdm):
-            return _renotch(rdm, profile.mtd.notch_divisor)
+            return _notch(rdm, profile.mtd.notch_divisor)
 
         def _segs(rdm):
             return segments or ((0, rdm.shape[-1]),)

@@ -24,6 +24,23 @@ def test_b1_bound_at_g2_and_the_sweep_batch():
     assert cost.g2_frame_fused_cfar_projection()["hbm_bytes"] == c["hbm_bytes"]
 
 
+def test_b1_bound_with_the_fused_renotch():
+    """With the re-notch fused into B1 the 35 notched rows of a G2 window
+    (148-182, ``models.detect.renotch_rows``) are not read: 307.3 MB,
+    0.0917 ms; at the sweep's batch 23.6 MB.  A count outside the used rows
+    raises."""
+    cfg = G2_PROFILE.cfar
+    c = cost.cascaded_cfar_cost(52, 332, 3404, 14, cfg, notched_rows=35)
+    full = cost.cascaded_cfar_cost(52, 332, 3404, 14, cfg)
+    assert full["hbm_bytes"] - c["hbm_bytes"] == 52 * 35 * 3404 * 4
+    assert round(c["hbm_bytes"] / 1e6, 1) == 307.3 and round(c["sol_s"] * 1e3, 4) == 0.0917
+    s = cost.cascaded_cfar_cost(4, 332, 3404, 14, cfg, notched_rows=35)
+    assert round(s["hbm_bytes"] / 1e6, 1) == 23.6 and c["bound_by"] == "bytes"
+    for bad in (-1, 304):
+        with pytest.raises(ValueError, match="notched rows"):
+            cost.cascaded_cfar_cost(52, 332, 3404, 14, cfg, notched_rows=bad)
+
+
 def test_b1_bound_at_g0():
     """B1 over G0's two segments (2048 x 62 and 2048 x 512, n_clutter 6):
     0.00023 and 0.0019 ms."""

@@ -102,6 +102,33 @@ def _on_threshold(rng):
     return rdm
 
 
+def _renotch(rng, rdm, zero_rows):
+    """``(rdm, zero_rows)`` for a B1 case: with ``zero_rows`` (a half-open
+    Doppler row range, or a function of the row count giving one) those rows
+    of a copy of ``rdm`` hold negative values, which the kernel must read as
+    0.0 and the plain version multiplies by 0 (to -0)."""
+    if zero_rows is None:
+        return rdm, None
+    a, b = zero_rows(rdm.shape[-2]) if callable(zero_rows) else zero_rows
+    rdm = rdm.copy()
+    rdm[..., a:b, :] = -(np.abs(rng.standard_normal(rdm[..., a:b, :].shape)) + 0.5)
+    return rdm, (a, b)
+
+
+def _plain_renotched(x, segments, cfg, n_clutter, zero_rows):
+    """B1's plain version on ``x * keep[:, None]``, ``keep`` zero on
+    ``zero_rows``: the CFAR stage's re-notch, then ``segmented_cfar``."""
+    if zero_rows is not None:
+        keep = torch.ones(x.shape[-2], dtype=x.dtype, device=x.device)
+        keep[zero_rows[0] : zero_rows[1]] = 0.0
+        x = x * keep[:, None]
+    return tcfar.segmented_cfar(x, segments or ((0, x.shape[-1]),), cfg, n_clutter)
+
+
+# the fused re-notch: no rows, or a band around the middle of the crop
+NOTCH = {"whole": None, "renotched": lambda nv: (nv // 2 - nv // 10, nv // 2 + nv // 10 + 1)}
+
+
 def _pc(rng, shape, device):
     x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
     return torch.from_numpy(x).to(device)
@@ -243,28 +270,49 @@ def test_doppler_rdm_kernel_rejects_bad_inputs(rng, cuda_device):
 
 # ------------------------------------------------------------------------ B1
 @pytest.mark.gpu
+@pytest.mark.parametrize("notch", list(NOTCH))
 @pytest.mark.parametrize("case", list(INPUTS))
-def test_cascaded_cfar2d_kernel_bit_equal(rng, cuda_device, case):
+def test_cascaded_cfar2d_kernel_bit_equal(rng, cuda_device, case, notch):
     make, n_clutter, cfg = INPUTS[case]
-    rdm = torch.from_numpy(np.ascontiguousarray(make(rng))).to(cuda_device)
+    rdm, zero = _renotch(rng, np.ascontiguousarray(make(rng)), NOTCH[notch])
+    rdm = torch.from_numpy(rdm).to(cuda_device)
     before = kcfar.cascaded_cfar2d.launches
-    got_f, got_v = kcfar.cascaded_cfar2d(rdm, cfg, n_clutter)
-    want_f, want_v = tcfar.cascaded_cfar2d(rdm, cfg, n_clutter)
+    got_f, got_v = kcfar.cascaded_cfar2d(rdm, cfg, n_clutter, zero_rows=zero)
+    want_f, want_v = _plain_renotched(rdm, None, cfg, n_clutter, zero)
     assert kcfar.cascaded_cfar2d.launches == before + 1
     assert torch.equal(got_f, want_f) and torch.equal(got_v, want_v)
 
 
 @pytest.mark.gpu
-def test_cascaded_cfar2d_kernel_segments(rng, cuda_device):
+@pytest.mark.parametrize("notch", list(NOTCH))
+def test_cascaded_cfar2d_kernel_segments(rng, cuda_device, notch):
     segs = G2_PROFILE.cfar_segments
     rdm = np.stack([_rdm(rng, nv=48, nr=3404, hits=60) for _ in range(2)])
     rdm[:, :, [0, 227, 228, 950, 951, 3403]] += 40.0
+    rdm, zero = _renotch(rng, rdm, NOTCH[notch])
     x = torch.from_numpy(rdm).to(cuda_device)
     before = kcfar.cascaded_cfar2d.launches
-    got = kcfar.cascaded_cfar2d(x, G2_PROFILE.cfar, 2, segs)
-    want = tcfar.segmented_cfar(x, segs, G2_PROFILE.cfar, 2)
+    got = kcfar.cascaded_cfar2d(x, G2_PROFILE.cfar, 2, segs, zero_rows=zero)
+    want = _plain_renotched(x, segs, G2_PROFILE.cfar, 2, zero)
     assert kcfar.cascaded_cfar2d.launches == before + 1   # one launch for all segments
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cascaded_cfar2d_kernel_notched_rows_negative(rng, cuda_device):
+    """The G2 re-notch band (rows 148-182) holds negative values and a +-inf
+    free mix of magnitudes: read as 0.0, the flags are the plain version's
+    on the product with the keep-mask (-0 where the row was negative)."""
+    x = _g2_crafted(rng, 3)
+    x[:, 148:183] = rng.standard_normal(x[:, 148:183].shape).astype(np.float32) * 1e3
+    x[:, 150, :40] = -3.0e38
+    x = torch.from_numpy(x).to(cuda_device)
+    for cfg in (G2_PROFILE.cfar, dataclasses.replace(G2_PROFILE.cfar, method=1),
+                CFARConfig(ref_cells=8, guard_cells=2, threshold=4.0, range_extend_cells=3)):
+        got = kcfar.cascaded_cfar2d(x, cfg, 13, G2_PROFILE.cfar_segments, zero_rows=(148, 183))
+        want = _plain_renotched(x, G2_PROFILE.cfar_segments, cfg, 13, (148, 183))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool(want[1][:, 160:171].all())   # C8: the self-flagged band
 
 
 def _g2_crafted(rng, batch, nr=3404, segments=G2_PROFILE.cfar_segments, n_clutter=13):
@@ -285,17 +333,20 @@ def _g2_crafted(rng, batch, nr=3404, segments=G2_PROFILE.cfar_segments, n_clutte
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("notch", list(NOTCH))
 @pytest.mark.parametrize("batch", [1, 52])
 @pytest.mark.parametrize("cfg", [G2_PROFILE.cfar, CFARConfig(threshold=5.0, range_extend_cells=2),
                                  CFARConfig(threshold=5.0, range_detect=False)],
                          ids=["g2-cfar", "E2", "no-range-pass"])
-def test_cascaded_cfar2d_kernel_g2_geometry(rng, cuda_device, batch, cfg):
+def test_cascaded_cfar2d_kernel_g2_geometry(rng, cuda_device, batch, cfg, notch):
     """Full G2 geometry (332 x 3404, three segments, the third starting at
-    the misaligned column 951), batch 1 and the 52 of one window."""
-    x = torch.from_numpy(_g2_crafted(rng, batch)).to(cuda_device)
+    the misaligned column 951), batch 1 and the 52 of one window; renotched:
+    the G2 re-notch band (148, 183) fused, its rows negative in memory."""
+    x, zero = _renotch(rng, _g2_crafted(rng, batch), NOTCH[notch] and (148, 183))
+    x = torch.from_numpy(x).to(cuda_device)
     before = kcfar.cascaded_cfar2d.launches
-    got = kcfar.cascaded_cfar2d(x, cfg, 13, G2_PROFILE.cfar_segments)
-    want = tcfar.segmented_cfar(x, G2_PROFILE.cfar_segments, cfg, 13)
+    got = kcfar.cascaded_cfar2d(x, cfg, 13, G2_PROFILE.cfar_segments, zero_rows=zero)
+    want = _plain_renotched(x, G2_PROFILE.cfar_segments, cfg, 13, zero)
     assert kcfar.cascaded_cfar2d.launches == before + 1
     assert int(want[0].sum()) > 0 and bool(want[1][0, 90, 3354])   # the on-threshold cell
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -312,15 +363,17 @@ SEGMENT_CASES = {
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("notch", list(NOTCH))
 @pytest.mark.parametrize("case", list(SEGMENT_CASES))
-def test_cascaded_cfar2d_kernel_narrow_misaligned_segments(rng, cuda_device, case):
+def test_cascaded_cfar2d_kernel_narrow_misaligned_segments(rng, cuda_device, case, notch):
     nr, segments = SEGMENT_CASES[case]
-    x = torch.from_numpy(_g2_crafted(rng, 3, nr, segments)).to(cuda_device)
+    x, zero = _renotch(rng, _g2_crafted(rng, 3, nr, segments), NOTCH[notch])
+    x = torch.from_numpy(x).to(cuda_device)
     for cfg in (G2_PROFILE.cfar, CFARConfig(ref_cells=8, guard_cells=2, threshold=4.0,
                                             range_extend_cells=3)):
         before = kcfar.cascaded_cfar2d.launches
-        got = kcfar.cascaded_cfar2d(x, cfg, 13, segments)
-        want = tcfar.segmented_cfar(x, segments, cfg, 13)
+        got = kcfar.cascaded_cfar2d(x, cfg, 13, segments, zero_rows=zero)
+        want = _plain_renotched(x, segments, cfg, 13, zero)
         assert kcfar.cascaded_cfar2d.launches == before + 1
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -331,18 +384,28 @@ def test_cascaded_cfar2d_smem_matches_plan(cuda_device):
     from radar_signal_process_tpu_torch.kernels import _build
 
     lib = _build.library()
-    for tx in kcfar.STRIPS:
-        for r, g, e in ((5, 7, 1), (1, 0, 0), (8, 2, 3), (5, 7, 127)):
-            assert lib.rsp_cascaded_cfar_smem_bytes(tx, r, g, e) == kcfar.smem_bytes(tx, r, g, e)
+    for sw in kcfar.STRIPS:
+        for r, g in ((5, 7), (1, 0), (8, 2), (300, 7)):
+            assert lib.rsp_cascaded_cfar_smem_bytes(sw, r, g) == kcfar.smem_bytes(sw, r, g)
 
 
 @pytest.mark.gpu
-def test_cascaded_cfar2d_kernel_on_threshold(rng, cuda_device):
-    rdm = torch.from_numpy(_on_threshold(rng)).to(cuda_device)
+@pytest.mark.parametrize("notch", list(NOTCH))
+def test_cascaded_cfar2d_kernel_on_threshold(rng, cuda_device, notch):
+    rdm, zero = _renotch(rng, _on_threshold(rng), NOTCH[notch] and (8, 20))
+    rdm = torch.from_numpy(rdm).to(cuda_device)
     cfg = CFARConfig(threshold=5.0)
-    f, v = kcfar.cascaded_cfar2d(rdm, cfg, 3)
-    pf, pv = tcfar.cascaded_cfar2d(rdm, cfg, 3)
+    f, v = kcfar.cascaded_cfar2d(rdm, cfg, 3, zero_rows=zero)
+    pf, pv = _plain_renotched(rdm, None, cfg, 3, zero)
     assert bool(f[30, 30]) and torch.equal(f, pf) and torch.equal(v, pv)
+
+
+@pytest.mark.gpu
+def test_b1_division_by_five_is_ieee_on_every_float(cuda_device):
+    """B1's division by the shipped r = 5 is an FMA sequence, not a
+    division: on all 2^32 float32 bit patterns it gives __fdiv_rn(x, 5.0f)
+    bit for bit."""
+    assert kcfar.division_mismatches(cuda_device) == 0
 
 
 @pytest.mark.gpu
@@ -497,14 +560,19 @@ def _g0_rdm(rng, nr, n_clutter=6):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("notch", list(NOTCH))
 @pytest.mark.parametrize("nr", [62, 512])
 @pytest.mark.parametrize("cfg", [G0_PROFILE.cfar, CFARConfig(threshold=5.0, range_extend_cells=2)],
                          ids=["g0-cfar", "E2"])
-def test_cascaded_cfar2d_kernel_bit_equal_at_g0(rng, cuda_device, nr, cfg):
-    rdm = torch.from_numpy(_g0_rdm(rng, nr)).to(cuda_device)
+def test_cascaded_cfar2d_kernel_bit_equal_at_g0(rng, cuda_device, nr, cfg, notch):
+    """G0's two segments: 62 columns (a row stride TMA cannot take, so the
+    cp.async staging path) and 512 (TMA)."""
+    rdm, zero = _renotch(rng, _g0_rdm(rng, nr), NOTCH[notch])
+    rdm = torch.from_numpy(rdm).to(cuda_device)
+    assert kcfar.cfar_plan(((0, nr),), 2035, 1, cfg).tma == (nr == 512)
     before = kcfar.cascaded_cfar2d.launches
-    got_f, got_v = kcfar.cascaded_cfar2d(rdm, cfg, 6)
-    want_f, want_v = tcfar.cascaded_cfar2d(rdm, cfg, 6)
+    got_f, got_v = kcfar.cascaded_cfar2d(rdm, cfg, 6, zero_rows=zero)
+    want_f, want_v = _plain_renotched(rdm, None, cfg, 6, zero)
     assert kcfar.cascaded_cfar2d.launches == before + 1
     assert int(want_f.sum()) > 0
     assert torch.equal(got_f, want_f) and torch.equal(got_v, want_v)
@@ -586,18 +654,20 @@ def test_doppler_rdm_kernel_new_shapes(rng, cuda_device, shape):
 
 
 @pytest.mark.gpu
-def test_cascaded_cfar2d_kernel_threshold_sweep(rng, cuda_device):
+@pytest.mark.parametrize("notch", list(NOTCH))
+def test_cascaded_cfar2d_kernel_threshold_sweep(rng, cuda_device, notch):
     """Five thresholds over one batch in one process: bit-identical to the
     plain version at each, and one launch plan for all of them."""
-    x = torch.from_numpy(_g2_crafted(rng, 4)).to(cuda_device)
+    x, zero = _renotch(rng, _g2_crafted(rng, 4), NOTCH[notch] and (148, 183))
+    x = torch.from_numpy(x).to(cuda_device)
     segs = G2_PROFILE.cfar_segments
-    kcfar.cascaded_cfar2d(x, G2_PROFILE.cfar, 13, segs)
+    kcfar.cascaded_cfar2d(x, G2_PROFILE.cfar, 13, segs, zero_rows=zero)
     plans = kcfar._launch_table.cache_info().currsize
     for t in (3.0, 4.3, 5.0, 6.1, 7.0):
         cfg = dataclasses.replace(G2_PROFILE.cfar, threshold=t)
         before = kcfar.cascaded_cfar2d.launches
-        got = kcfar.cascaded_cfar2d(x, cfg, 13, segs)
-        want = tcfar.segmented_cfar(x, segs, cfg, 13)
+        got = kcfar.cascaded_cfar2d(x, cfg, 13, segs, zero_rows=zero)
+        want = _plain_renotched(x, segs, cfg, 13, zero)
         assert kcfar.cascaded_cfar2d.launches == before + 1
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert kcfar._launch_table.cache_info().currsize == plans
@@ -742,25 +812,29 @@ def test_detect_thresholds_on_card_equal_single_runs(cuda_device, stage_frames):
 
 # --------------------------------------------------------- multi-device layer
 def _wrapped_blocks(rdm, sp, h):
-    """Each range shard's halo-extended block, as ``halo_exchange`` delivers
-    it (the ring wraps at the global edges)."""
+    """Each range shard's halo-extended block, as ``sharded_cascaded_cfar2d``
+    has ``halo_exchange`` deliver it (the ring wraps at the global edges;
+    the right halo is wider by the columns that make a row whole 16 bytes)."""
     local = rdm.shape[-1] // sp
-    ext = torch.cat([rdm[..., -h:], rdm, rdm[..., :h]], dim=-1)
-    return [(s * local, ext[..., s * local : s * local + local + 2 * h].contiguous())
-            for s in range(sp)]
+    w = local + 2 * h + -(local + 2 * h) % 4
+    ext = torch.cat([rdm[..., -h:], rdm, rdm[..., : w - local - h]], dim=-1)
+    return [(s * local, ext[..., s * local : s * local + w].contiguous()) for s in range(sp)]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("notch", list(NOTCH))
 @pytest.mark.parametrize("sp", [2, 4])
 @pytest.mark.parametrize("shape,segments", [
     ((4, 332, 3404), G2_PROFILE.cfar_segments),
     ((3, 96, 344), ((0, 24), (24, 104), (104, 344))),
 ], ids=["g2", "cut"])
-def test_b1_extended_blocks_match_whole(rng, cuda_device, sp, shape, segments):
+def test_b1_extended_blocks_match_whole(rng, cuda_device, sp, shape, segments, notch):
     """B1 once per halo-extended block (the sharded CFAR's route on the card),
     centres stitched, equals B1 over the whole RDM and its plain version,
     bit for bit, at shards that cut the segments; the re-notch band's
-    self-flagging rows included."""
+    self-flagging rows included (fused into the load when renotched).  The
+    G2 blocks (1730 and 879 columns, widened to 1732 and 880) take the TMA
+    staging path."""
     from radar_signal_process_tpu_torch.parallel.sharding import extended_block_cfar
 
     b, nv, nr = shape
@@ -768,18 +842,20 @@ def test_b1_extended_blocks_match_whole(rng, cuda_device, sp, shape, segments):
     rdm[:, nv // 2 - 4 : nv // 2 + 3] = 0.0
     for _ in range(40 * b):
         rdm[rng.integers(0, b), rng.integers(12, nv - 12), rng.integers(0, nr)] += 40.0
+    rdm, zero = _renotch(rng, rdm, NOTCH[notch] and (nv // 2 - 4, nv // 2 + 3))
     x = torch.from_numpy(rdm).to(cuda_device)
     cfg, n_clutter = G2_PROFILE.cfar, 6
     h = cfg.ref_cells + cfg.guard_cells + 2 * cfg.range_extend_cells
-    whole_f, whole_v = kcfar.cascaded_cfar2d(x, cfg, n_clutter, segments)
+    whole_f, whole_v = kcfar.cascaded_cfar2d(x, cfg, n_clutter, segments, zero_rows=zero)
     before = kcfar.cascaded_cfar2d.launches
-    parts = [extended_block_cfar(blk, cfg, n_clutter, nr, segments, c0, h)
+    parts = [extended_block_cfar(blk, cfg, n_clutter, nr, segments, c0, nr // sp, h,
+                                 zero_rows=zero)
              for c0, blk in _wrapped_blocks(x, sp, h)]
     assert kcfar.cascaded_cfar2d.launches == before + sp
     got_f = torch.cat([f for f, _ in parts], -1)
     got_v = torch.cat([v for _, v in parts], -1)
     assert torch.equal(got_f, whole_f) and torch.equal(got_v, whole_v)
-    plain_f, _ = tcfar.segmented_cfar(torch.from_numpy(rdm), segments, cfg, n_clutter)
+    plain_f, _ = _plain_renotched(torch.from_numpy(rdm), segments, cfg, n_clutter, zero)
     np.testing.assert_array_equal(got_f.cpu().numpy(), plain_f.numpy())
     assert bool(whole_f.any())
 

@@ -146,53 +146,69 @@ def test_cascaded_cfar2d_segments_cpu_dispatch(rng):
     assert kcfar.cascaded_cfar2d.launches == before
 
 
-# name -> (segments, cropped rows nvu, batch, CFAR config, expected strip width)
+# name -> (segments, cropped rows nvu, batch, CFAR config, expected staged
+# tile width, expected staging: TMA (row stride a multiple of 16 bytes) or
+# cp.async)
 PLANS = {
-    "g2": (G2_PROFILE.cfar_segments, 303, 52, G2_PROFILE.cfar, 256),
-    "g2-batch1": (G2_PROFILE.cfar_segments, 303, 1, G2_PROFILE.cfar, 256),
-    "g0-short": (((0, 62),), 2035, 1, CFARConfig(), 64),
-    "g0-long": (((0, 512),), 2035, 1, CFARConfig(), 256),
+    "g2": (G2_PROFILE.cfar_segments, 303, 52, G2_PROFILE.cfar, 256, True),
+    "g2-batch1": (G2_PROFILE.cfar_segments, 303, 1, G2_PROFILE.cfar, 256, True),
+    "sweep": (G2_PROFILE.cfar_segments, 303, 4, G2_PROFILE.cfar, 256, True),
+    "g0-short": (((0, 62),), 2035, 1, CFARConfig(), 128, False),
+    "g0-long": (((0, 512),), 2035, 1, CFARConfig(), 128, True),
     # segments narrower than the 14-column range halo, misaligned starts
-    "tiny": (((0, 3), (3, 20), (20, 21), (21, 150)), 23, 2, CFARConfig(threshold=2.0), 256),
-    "mid": (((0, 100), (100, 127)), 40, 2, CFARConfig(), 128),
-    "narrow-only": (((0, 5), (5, 13)), 7, 3, CFARConfig(ref_cells=1, guard_cells=0), 64),
-    "E127": (((0, 700),), 50, 3, CFARConfig(range_extend_cells=127), 256),
+    "tiny": (((0, 3), (3, 20), (20, 21), (21, 150)), 23, 2, CFARConfig(threshold=2.0), 128,
+             False),
+    "mid": (((0, 100), (100, 127)), 40, 2, CFARConfig(), 128, False),
+    "narrow-only": (((0, 5), (5, 13)), 7, 3, CFARConfig(ref_cells=1, guard_cells=0), 128, False),
+    "E127": (((0, 700),), 50, 3, CFARConfig(range_extend_cells=127), 1024, True),
+    # the halo-extended blocks of a G2 window on sp = 2 and 4 range shards,
+    # their rows widened to whole 16 bytes (the last segment takes the columns)
+    "halo-sp2": (kcfar.extended_segments(3404, G2_PROFILE.cfar_segments, 0, 1702, 14)[:-1]
+                 + ((965, 1732),), 303, 52, G2_PROFILE.cfar, 256, True),
+    "halo-sp4": (kcfar.extended_segments(3404, G2_PROFILE.cfar_segments, 851, 851, 14)[:-1]
+                 + ((114, 880),), 303, 52, G2_PROFILE.cfar, 256, True),
 }
 
 
 @pytest.mark.parametrize("case", list(PLANS))
 def test_cfar_plan_covers_every_cell_once(case):
-    """The block map of the one B1 launch: every output cell of every
-    segment belongs to exactly one block, every clutter-row column to
-    exactly one first-band block, and a block fits the card (threads, shared
-    memory)."""
-    segments, nvu, batch, cfg, tx = PLANS[case]
+    """The block map of the one B1 launch: every output cell of the RDM
+    belongs to exactly one block, every clutter-row column to exactly one
+    first-band block, a block fits the card (threads, shared memory), its
+    four-column groups start on 16-byte boundaries, and the shape takes the
+    staging path it should."""
+    segments, nvu, batch, cfg, sw, tma = PLANS[case]
     plan = kcfar.cfar_plan(segments, nvu, batch, cfg)
     r, g, e = cfg.ref_cells, cfg.guard_cells, cfg.range_extend_cells
-    assert plan.tx == tx and plan.threads == -(-(tx + 2 * (2 * e + r + g)) // 32) * 32 <= 1024
-    assert plan.smem == kcfar.smem_bytes(tx, r, g, e) <= kcfar.SMEM_LIMIT
-    assert [(c, w) for c, w, _ in plan.table] == [(a, b - a) for a, b in segments]
-    assert plan.n_bands == -(-nvu // plan.band_rows)
+    assert (plan.sw, plan.tma) == (sw, tma)
+    assert plan.halo >= 2 * e + r + g and plan.halo % 4 == 0 and plan.tx == sw - 2 * plan.halo
+    assert plan.tx % 4 == 0 and plan.threads == sw // kcfar.COLS <= 1024
+    assert plan.smem == kcfar.smem_bytes(sw, r, g) <= kcfar.SMEM_LIMIT
+    assert plan.table == tuple((a, b - a) for a, b in segments)
     nr = segments[-1][1]
+    assert plan.n_strips == -(-nr // plan.tx) and plan.n_bands == -(-nvu // plan.band_rows)
     cells = np.zeros((nvu, nr), np.int32)
     crop = np.zeros(nr, np.int32)
     for block in range(plan.n_blocks):
-        col0, ns, x0, y_begin, y_end = kcfar.plan_tile(plan, block)
-        assert 0 <= x0 < ns and 0 <= y_begin < nvu
-        cols = slice(col0 + x0, col0 + min(x0 + plan.tx, ns))
+        x0, y_begin, y_end = kcfar.plan_tile(plan, block)
+        assert 0 <= x0 < nr and 0 <= y_begin < nvu and (x0 - plan.halo) % 4 == 0
+        cols = slice(x0, min(x0 + plan.tx, nr))
         cells[y_begin:y_end, cols] += 1
         if y_begin == 0:
             crop[cols] += 1
     assert (cells == 1).all() and (crop == 1).all()
+    assert not kcfar.cfar_plan(segments, nvu, batch, cfg, aligned=False).tma
 
 
 def test_cfar_plan_bands():
-    """G2 keeps long bands (the velocity pipeline fills once per 101 rows);
-    the single G0 segments cut their 2035 rows into short bands, so the one
-    RDM of a call still spreads over the card."""
+    """G2 keeps long bands (the velocity pipeline fills once per 101 rows)
+    in strips of 224 columns, five blocks of 64 threads an SM; the single G0
+    segments cut their 2035 rows into short bands, so the one RDM of a call
+    still spreads over the card."""
     g2 = kcfar.cfar_plan(G2_PROFILE.cfar_segments, 303, 52, G2_PROFILE.cfar)
-    assert (g2.tx, g2.threads, g2.band_rows, g2.n_bands) == (256, 288, 101, 3)
-    assert g2.n_blocks * 52 == 2184 and g2.smem == 53056   # four blocks per SM
+    assert (g2.sw, g2.tx, g2.threads, g2.band_rows, g2.n_bands) == (256, 224, 64, 101, 3)
+    assert g2.n_blocks * 52 == 2496 and g2.smem == 43048   # five blocks per SM
+    assert 233472 // (g2.smem + 1024) == 5
     short = kcfar.cfar_plan(((0, 62),), 2035, 1, CFARConfig())
     long = kcfar.cfar_plan(((0, 512),), 2035, 1, CFARConfig())
     for plan in (short, long):
@@ -202,6 +218,71 @@ def test_cfar_plan_bands():
                         CFARConfig())
     with pytest.raises(ValueError, match="threads"):
         kcfar.cfar_plan(((0, 100),), 50, 1, CFARConfig(ref_cells=300))
+
+
+# ------------------------------------------------------- B1 with the re-notch
+def _renotch_case(rng, shape, negative: bool):
+    """RDMs with hits, segment-edge hits and, where ``negative``, negative
+    values in the divisor-20 notch rows (NaN-free), so the re-notch's
+    product gives -0 there."""
+    rdm = (np.abs(rng.standard_normal(shape)) + 0.5).astype(np.float32)
+    b, nv, nr = shape
+    for _ in range(20 * b):
+        rdm[rng.integers(0, b), rng.integers(4, nv - 4), rng.integers(0, nr)] += 40.0
+    rdm[..., [0, 23, 24, 103, 104, nr - 1]] += 40.0
+    lo, hi = tmtd.notch_rows(nv, 20)
+    if negative:
+        rdm[:, lo : hi + 1] = -(np.abs(rng.standard_normal((b, hi + 1 - lo, nr))) * 30.0
+                                ).astype(np.float32)
+    return rdm, (lo, hi + 1)
+
+
+@pytest.mark.parametrize("negative", [False, True], ids=["positive", "notched-negative"])
+@pytest.mark.parametrize("cfg", [CFARConfig(threshold=5.0), CFARConfig(threshold=3.0, method=1),
+                                 CFARConfig(threshold=4.0, range_extend_cells=2)],
+                         ids=["go", "so", "E2"])
+def test_cascaded_cfar2d_zero_rows_matches_jax(rng, cfg, negative):
+    """``zero_rows`` is the re-notch fused into B1: the wrapper's flags equal
+    the JAX ``segmented_cfar`` on ``zero_velocity_notch(rdm, divisor=20)``,
+    and, per segment, ``cascaded_cfar2d_pallas`` in interpret mode on it."""
+    segments = ((0, 24), (24, 104), (104, 160))
+    rdm, zero = _renotch_case(rng, (2, 64, 160), negative)
+    notched = jmtd.zero_velocity_notch(jnp.asarray(rdm), divisor=20)
+    jcfg = as_config(cfg, jconfig)
+    want_f, want_v = jcfar.segmented_cfar(notched, segments, jcfg, 4)
+    got_f, got_v = kcfar.cascaded_cfar2d(torch.from_numpy(rdm), cfg, 4, segments, zero_rows=zero)
+    np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    pal = [cascaded_cfar2d_pallas(notched[..., a:b], jcfg, 4, interpret=True) for a, b in segments]
+    np.testing.assert_array_equal(got_v.numpy(), np.concatenate([np.asarray(v) for _, v in pal], -1))
+    np.testing.assert_array_equal(got_f.numpy(), np.concatenate([np.asarray(f) for f, _ in pal], -1))
+    assert got_f.any()
+
+
+def test_cascaded_cfar2d_zero_rows_is_the_product(rng):
+    """The plain route is ``rdm * keep[:, None]`` then ``segmented_cfar``:
+    equal to the wrapper without ``zero_rows`` on the product; an empty or
+    clipped range means no notch or the rows inside the RDM."""
+    rdm, zero = _renotch_case(rng, (3, 48, 120), True)
+    x = torch.from_numpy(rdm)
+    keep = torch.ones(48)
+    keep[zero[0] : zero[1]] = 0.0
+    cfg = CFARConfig(threshold=5.0)
+    want = kcfar.cascaded_cfar2d(x * keep[:, None], cfg, 3)
+    for z in (zero, (zero[0], zero[1])):
+        got = kcfar.cascaded_cfar2d(x, cfg, 3, zero_rows=z)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    plain = kcfar.cascaded_cfar2d_plain(x, cfg, 3, None, zero)
+    assert torch.equal(plain[0], want[0]) and torch.equal(plain[1], want[1])
+    none = kcfar.cascaded_cfar2d(x, cfg, 3)
+    for z in (None, (10, 10), (30, 5), (60, 90)):
+        got = kcfar.cascaded_cfar2d(x, cfg, 3, zero_rows=z)
+        assert torch.equal(got[0], none[0]) and torch.equal(got[1], none[1])
+    keep_all = torch.ones(48)
+    keep_all[40:] = 0.0
+    tail = kcfar.cascaded_cfar2d(x * keep_all[:, None], cfg, 3)
+    got = kcfar.cascaded_cfar2d(x, cfg, 3, zero_rows=(40, 99))
+    assert torch.equal(got[0], tail[0]) and torch.equal(got[1], tail[1])
 
 
 def test_ops_cfar_general_form_matches_ext1_form(rng):

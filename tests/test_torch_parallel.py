@@ -456,12 +456,14 @@ def test_extended_segments_brute_force(table, e):
 
 
 def _halo_blocks(rdm, sp, h):
-    """Each shard's halo-extended block as ``halo_exchange`` delivers it:
-    the ring wraps at the global edges."""
+    """Each shard's halo-extended block as ``sharded_cascaded_cfar2d`` has
+    ``halo_exchange`` deliver it: the ring wraps at the global edges, and
+    the right halo is wider by the columns that make a row whole 16 bytes."""
     n = rdm.shape[-1]
     local = n // sp
-    ext = torch.cat([rdm[..., -h:], rdm, rdm[..., :h]], dim=-1)
-    return [(s * local, ext[..., s * local : s * local + local + 2 * h]) for s in range(sp)]
+    w = local + 2 * h + -(local + 2 * h) % 4
+    ext = torch.cat([rdm[..., -h:], rdm, rdm[..., : w - local - h]], dim=-1)
+    return [(s * local, ext[..., s * local : s * local + w]) for s in range(sp)]
 
 
 @pytest.mark.parametrize("sp", [1, 2, 4])
@@ -482,7 +484,7 @@ def test_b1_route_plain_stand_in_matches_whole(sp, e):
     x = torch.from_numpy(rdm)
     want_f, want_v = tcfar.segmented_cfar(x, segments, cfg, 4)
     h = cfg.ref_cells + cfg.guard_cells + 2 * e
-    parts = [tsharding.extended_block_cfar(blk, cfg, 4, 344, segments, c0, h)
+    parts = [tsharding.extended_block_cfar(blk, cfg, 4, 344, segments, c0, 344 // sp, h)
              for c0, blk in _halo_blocks(x, sp, h)]
     np.testing.assert_array_equal(torch.cat([f for f, _ in parts], -1).numpy(), want_f.numpy())
     np.testing.assert_array_equal(torch.cat([v for _, v in parts], -1).numpy(), want_v.numpy())

@@ -227,7 +227,9 @@ def test_detector_matches_jax_on_same_rdm(rng):
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_d.amplitude.numpy(), np.asarray(want_d.amplitude))
     _assert_same_detections(got_d, want_d)
-    assert "renotch_mask" in dict(det.named_buffers())
+    # the re-notch is fused into B1 (renotch_rows): no mask buffer is kept
+    assert not dict(det.named_buffers())
+    assert tdetect.renotch_rows(det.profile, 32, 2, det.renotch_divisor) == (13, 18)
 
 
 def test_stream_truncated_capture_stops_cleanly(tmp_path):
