@@ -43,7 +43,10 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    complex64 matmuls) and its cuFFT form at G0 geometry, both pulse
    segments of two beams (2 x 1536 x 62 -> 2 x 2048 x 62 and
    2 x 1536 x 504 -> 2 x 2048 x 512), each read in place from the beams;
-   and both against the complex128 product, as for B2;
+   and both against the complex128 product, as for B2; each segment's
+   device time (a CUDA graph of 20 calls) beside the plain version's, the
+   cuFFT form's call time, the bound and the share of it, and the device
+   time of the operator's image (made once an operator);
 7. B1 (G0) — the CFAR kernel bit for bit against its plain version at G0
    geometry (2048 x 62 and 2048 x 512, one segment, n_clutter 6), on B3's
    summed, notched output and on crafted RDMs; timed per segment as in 4;
@@ -1153,7 +1156,11 @@ def rdm_error(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, floa
 
 
 def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
-    from radar_signal_process_tpu_torch.kernels.pc_rdm import fused_pc_rdm, fused_pc_rdm_plain
+    from radar_signal_process_tpu_torch.kernels.pc_rdm import (
+        fused_pc_rdm,
+        fused_pc_rdm_plain,
+        pc_operator_image,
+    )
 
     prof = chain.profile
     rng = np.random.default_rng(SEED + 3)
@@ -1198,6 +1205,23 @@ def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
         del want
     fns["cufft_both"] = lambda: chain.front_fft(beams)
     ms = cuda_ms(fns)
+    # device time of each segment (a CUDA graph of 20 calls) beside its bound;
+    # the cuFFT form copies a filter spectrum from the host, so its call time
+    cufft = cuda_ms({name: lambda name=name: chain.front_fft(beams, (name,)) for name in segments})
+    device = {}
+    for name, (seg, m_re, m_im) in segments.items():
+        c = cost_model.fused_pc_rdm_cost(G0_BATCH, prof.prt_per_frame, *m_re.shape,
+                                         chain.dft_re.shape[0])
+        device[name] = {
+            "kernel": graph_ms(fns[f"{name}_kernel"]), "plain": graph_ms(fns[f"{name}_plain"]),
+            "cufft": cufft[name],
+            "prep": graph_ms(lambda m_re=m_re, m_im=m_im: pc_operator_image(m_re, m_im)),
+            "bound": c["sol_s"] * 1e3, "bound_by": c["bound_by"]}
+        d = device[name]
+        print(f"B3 [{name}] device ms (CUDA graph of 20 calls): kernel {d['kernel']:.4f}, plain "
+              f"(two cuBLAS CGEMMs + abs) {d['plain']:.4f}, cuFFT form {d['cufft']:.4f} a call; bound "
+              f"{d['bound']:.4f} by {d['bound_by']}, kernel at {100 * d['bound'] / d['kernel']:.1f}% "
+              f"of it; the operator's image (once an operator) {d['prep']:.4f} | {SMI['line']}")
     for name, (max_abs, max_rel, peak, fft_rel, seg_ok, fft_ok) in errs.items():
         seg = segments[name][0]
         print(f"B3 fused_pc_rdm [{name}] {tuple(seg.shape)} in place (row stride "
@@ -1224,7 +1248,10 @@ def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
           f"{n_bytes / 1e6:.1f} MB; the FP32 route's bound "
           f"{flops / cost_model.H100_FP32_FLOPS * 1e3:.3f} ms) | {SMI['line']}")
     print(f"B3 per frame (both segments): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"cuFFT form {ms['cufft_both']:.3f} ms (median of {REPS}, CUDA events)")
+          f"cuFFT form {ms['cufft_both']:.3f} ms (median of {REPS}, CUDA events); device "
+          f"kernel {sum(d['kernel'] for d in device.values()):.4f} ms "
+          f"({100 * bound / sum(d['kernel'] for d in device.values()):.1f}% of the bound), plain "
+          f"{sum(d['plain'] for d in device.values()):.4f}")
     if not ok:
         fail("B3: kernel disagrees with its plain version, its cuFFT form or the "
              "complex128 product")
@@ -1235,7 +1262,8 @@ def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "cufft_ms": ms["cufft_both"],
             "ms_by_segment": {k: ms[f"{k}_kernel"] for k in segments},
-            "plain_ms_by_segment": {k: ms[f"{k}_plain"] for k in segments}}, tuple(outs)
+            "plain_ms_by_segment": {k: ms[f"{k}_plain"] for k in segments},
+            "device_ms_by_segment": device}, tuple(outs)
 
 
 def phase_cfar_g0(dev, chain, abs_rdms) -> dict:

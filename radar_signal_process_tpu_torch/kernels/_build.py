@@ -32,6 +32,7 @@ CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).with_name("_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argument types; each returns an int (a cudaError_t
@@ -44,8 +45,10 @@ _SIGNATURES = {
                           _I, _F, _I, _I, _I, _I, _I, _P),
     "rsp_check_div5": (_P, _P),
     "rsp_cascaded_cfar_smem_bytes": (_I, _I, _I),
-    "rsp_fused_pc_rdm": (_P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "rsp_fused_pc_rdm_smem_bytes": (_I, _I, _I, _I),
+    "rsp_fused_pc_rdm": (_P, _L, _I, _P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
+    "rsp_fused_pc_rdm_split_m": (_P, _P, _P, _L, _I, _I, _P),
+    "rsp_fused_pc_rdm_smem_bytes": (),
 }
 
 _lock = threading.Lock()

@@ -30,7 +30,7 @@ from radar_signal_process_tpu_torch.config import CFARConfig
 from radar_signal_process_tpu_torch.kernels import _build
 from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
 
-SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
+SMEM_LIMIT = _build.SMEM_LIMIT
 MAX_SEGMENTS = 32        # the kernel's segment table (csrc/cfar.cu kMaxSegments)
 PREFETCH, ROWS = 4, 4    # rows staged ahead, rows a step (csrc/cfar.cu kPrefetch, kRows)
 H100_SMS = 132

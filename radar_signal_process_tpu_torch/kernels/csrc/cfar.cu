@@ -549,25 +549,6 @@ __global__ void check_div5_kernel(unsigned long long* bad) {
   if ((threadIdx.x & 31) == 0 && n) atomicAdd(bad, n);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime loaded, looked up once
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 template <int SW, int R, int G, int E>
 cudaError_t launch(const Maps& maps, const CfarArgs& args, int n_blocks, int batch,
                    cudaStream_t stream) {
@@ -652,7 +633,7 @@ extern "C" int rsp_cascaded_cfar(const void* rdm, void* flags, void* vflags, int
   }
   Maps maps{};
   if (tma) {
-    const EncodeTiled encode = encoder();
+    const rsp::EncodeTiled encode = rsp::tensor_map_encoder();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(nr),
                                 static_cast<cuuint64_t>(batch) * static_cast<cuuint64_t>(nv)};

@@ -1,4 +1,4 @@
-// B3: fused pulse compression + windowed Doppler DFT + magnitude in one pass.
+// B3: fused pulse compression + windowed Doppler DFT + magnitude.
 //
 // Replaces radar_signal_process_tpu/kernels/pc_rdm_pallas.py::fused_pc_rdm_pallas.
 //
@@ -11,428 +11,575 @@
 // per-row PC operator (the 512-point matched filter as a 504 x 512 matrix, or
 // the 35-tap raw FIR as a 62 x 62 Toeplitz matrix) and W the windowed,
 // zero-padded (n_fft, n_prt) DFT plane, each as float32 re/im planes built on
-// the host in float64.  P never reaches device memory.
+// the host in float64.
 //
 // What bounds it on an H100.  At G0 one frame is ~35 GFLOP of complex MAC
 // work (long PC 6.3, long Doppler 25.8, short 3.2) against ~40 MB of
-// compulsory traffic, so arithmetic bounds it.  Both products run on the
-// tensor cores at FP32 accuracy through the 3xTF32 split of cgemm_3xtf32.cuh:
-// 12 mma.sync per complex 16 x 8 x 8 step, which the card issues at best one
-// per ~6.7 cycles per SM sub-partition.  Two things keep a kernel from that
-// rate: where P lives (a P column at n_prt = 1536 is 12 KiB, so a range tile
-// of P fills an SM's shared memory and leaves too few warps), and the
-// instructions issued beside the mma's (operand splits, ring addressing).
-// The design:
-//   * P shared across a thread-block cluster of 16.  A cluster owns one range
-//     tile of TJ columns of one beam.  Block `rank` forms the P rows
-//     [rank * rows_per, (rank + 1) * rows_per) of the tile (phase 1) and keeps
-//     them in its own shared memory.  After cluster.sync() each block
-//     contracts its Doppler passes (128 rows each: rank, rank + 16, ...)
-//     against the whole of P (phase 2), reading the peers' slices through
-//     distributed shared memory.  A second cluster barrier keeps every block
-//     alive until no peer reads its P.  No P row is formed twice, and P costs
-//     each block 1/16 of the tile: 24 KiB at TJ = 32, so two blocks (16
-//     warps) share an SM.  A cluster of 16 needs the non-portable size.
-//   * Two tile widths, picked by the launcher: TJ = 32 (the long segment:
-//     2 beams x 16 tiles x 16 = 512 blocks) and TJ = 16 where 32-column
-//     tiles would leave SMs idle (the short segment: 2 x 4 x 16 = 128).
-//   * One pipelined main loop serves both phases: 8 warps, each owning 16
-//     rows of A, 16-deep K stages in a 3-stage ring.  A (X in phase 1, W in
-//     phase 2) comes by cp.async, 16-byte copies where the addresses and
-//     strides allow (the G0 segments do: row stride 566, column offset 62),
-//     else 8 bytes per X sample or 4 per W value.  B (M in phase 1, the peer's
-//     P in phase 2) is fetched into registers a stage ahead, split into TF32
-//     hi/lo once and stored beside A, so the 8 warps that read it load ready
-//     fragments.  Loader positions advance as counters: no division or
-//     modulo by a runtime value runs per stage.  The mma's of a step go out
-//     term by term across the warp's tiles (cmma_n), and partial sums are
-//     flushed once per 16-deep stage.  The magnitude is the epilogue.
-//   * Ragged edges (62 and 504 are no tile multiples) read zero through the
-//     copies' source size and the B fetch's bounds; P rows past n_prt are
-//     zero and W columns past n_prt read zero.  Stage pitches are padded so
-//     fragment loads are free of bank conflicts.
-// What bounds it now (an H100 at 700 W): the long segment runs at ~38
-// FP32-equivalent TFLOP/s.  The card places at most 14 clusters of 16 at a
-// time (112 of 132 SMs), so its 32 clusters take three waves for 2.3 waves
-// of work; inside a wave the mma's issue at ~12 cycles each, behind the W
-// operand's split (each W value is split once per block) and the flush adds.
-// Smaller clusters place better but hold a larger P slice each: clusters of
-// 4 with one block per SM fit 30 at a time, so the short segment's 32 took
-// two waves and ran slower than clusters of 16.
+// compulsory traffic, so arithmetic bounds it: 0.214 ms as 3xTF32 at the
+// tensor cores' 495 TFLOP/s (kernels/cost_model.py).  That rate is reached
+// only through Hopper's warpgroup MMA (wgmma, sm90_async.cuh), whose TF32
+// form reads a shared-memory operand only K-major.
+//
+// The design: two launches of one pipelined wgmma main loop, with P handed
+// between them through L2, already in the form the second product reads.
+//   * Both products in B2's real form (rdm.cu), with the complex operand A in
+//     registers and the other operand B as a pre-split shared-memory image:
+//       D (rows x [re | im] of kTJ columns) = Ar B + Ai B',
+//       B = [Br; Bi],  B' = [-Bi; Br]   (rows: output columns, K-major)
+//     so a thread holds a cell's re and im in the same slot of two n8 groups.
+//     3xTF32: six wgmma.m64n96k8 per 8-deep step, the small terms first
+//     (Ar_lo B_hi, Ar_hi B_lo, Ai_lo B'_hi, Ai_hi B'_lo, Ar_hi B_hi,
+//     Ai_hi B'_hi; lo.lo dropped).  B and B' overlap in one image of three
+//     sub-planes [-Bi; Br; Bi] per TF32 part (hi, lo): B' is its first two
+//     thirds, B its last two, so the image holds 24 bytes a complex value.
+//   * Phase 1, P = X M (K = fast-time samples): A = X, whose rows are pulses
+//     (B3's batch folds into them, a block takes 128 pulses of one beam); B
+//     is M's image ([-Mi; Mr; Mi] over output columns), prepared once per
+//     operator by split_m_kernel and kept by the wrapper.  The epilogue
+//     writes P, rounded to float32 and split, straight into the image that
+//     phase 2 reads: [-Pi; Pr; Pi] over the columns c = b * n_out + j of all
+//     beams.  P goes through L2 (37.7 MB at G0's long segment; the 12.6 MB of
+//     P as complex64 is the least any hand-off could move).
+//   * Phase 2, out = |W P| (K = pulses): A = W, B = P's image.  W is shared
+//     by the beams, so their columns lie side by side along N: 2 x 62 = 124
+//     columns make three 48-column tiles at the short segment.  W needs no
+//     preparation: its raw re/im planes are staged and split in registers.
+//   * Staging: a ring of 6 stages of 16-deep K, each completing on one
+//     mbarrier, 4 stages in flight ahead of the one in use.  B's stage (18 KB)
+//     is one TMA bulk copy of the image.  A's stage is a TMA tensor box:
+//     X as a 3-D map (2 n_in floats x n_prt rows x batch, the segment's own
+//     width, so columns past it read zero, not the next segment's samples;
+//     128-byte swizzle), W as two 2-D maps (64-byte swizzle); the swizzles
+//     make the threads' fragment loads free of bank conflicts.  Shapes TMA
+//     cannot take (a view not on a 16-byte boundary, an odd stride, n_prt
+//     not a multiple of 4) take the other path of the same kernel: every
+//     thread copies its elements into the same swizzled places by cp.async,
+//     zero-filling the edges, and arrives on the same mbarrier.
+//   * The tensor core truncates as it accumulates, so the products sum into
+//     a partial that starts afresh every two stages (32-deep K), and the
+//     partial is added into FP32 totals, rounded to nearest, once its wgmmas
+//     have completed; two partials alternate, so a flush overlaps the next
+//     partial's products (B2's scheme, with partials of two stages: ptxas
+//     waits for every wgmma of the warpgroup before the flush reads a
+//     partial, and so drains the tensor pipe once a flush, not once a
+//     stage).
+//   * Block: two warpgroups (128 rows of A: pulses or Doppler rows) x 48
+//     output columns, one block per SM.  Where that grid would not fill the
+//     card (the short segment's phase 2: 16 x 3 blocks), phase 2 takes
+//     blocks of one warpgroup (64 Doppler rows) and twice as many of them.
+//     The magnitude is phase 2's epilogue, staged through shared memory so
+//     each output row is stored by whole warps in consecutive addresses.
+// Measured (tools/bench_b3.py, NVIDIA H100 80GB HBM3 at a 700 W power
+// limit, device time of a CUDA graph of 20 calls): a G0 frame 0.392-0.397
+// ms, 54% of the bound (short segment 0.069-0.070, long 0.319), where the
+// earlier design (a cluster of 16 sharing P through distributed shared
+// memory, mma.sync) took 0.998 and the two cuBLAS CGEMMs of the plain
+// version 0.747-0.774.  M's image takes 3-5 us once an operator.  What
+// holds it (--cuts, long segment): with the wgmmas cut it still takes 0.207
+// ms, so the copies, the fragment splits and the stage barriers cost about
+// what the tensor cores do and overlap them only in part; phase 2 alone
+// 0.242-0.248 (352 blocks: 2.67 waves of 132), phase 1 alone 0.075-0.078;
+// the P hand-off through L2 0.05, the W copies 0.02.
 
-#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 #include "cgemm_3xtf32.cuh"
+#include "sm90_async.cuh"
 
 namespace {
 
 using namespace rsp;
-namespace cg = cooperative_groups;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = kWarps * 16;   // A rows per pass: P rows (phase 1), Doppler rows (phase 2)
-constexpr int kBK = 16;              // K per stage: samples (phase 1), pulses (phase 2)
-constexpr int kStages = 3;
-constexpr int kCluster = 16;
-constexpr int kLdA = kBK + 4;        // A stage pitch: float2 of X, or floats of each W plane
-constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory a block may use
+constexpr int kBK = 16;                          // K per stage (= the flush period)
+constexpr int kTJ = 48;                          // output columns a tile
+constexpr int kN = 2 * kTJ;                      // wgmma N: re then im
+constexpr int kAcc = kN / 2;                     // accumulator floats a thread
+constexpr int kStages = 6;
+constexpr int kSubFloats = kTJ * kBK;            // one sub-plane of an image stage
+constexpr int kPartFloats = 3 * kSubFloats;      // [-Bi; Br; Bi] of one TF32 part
+constexpr int kImageStageFloats = 2 * kPartFloats;
+constexpr uint32_t kBStageBytes = sizeof(float) * kImageStageFloats;
+constexpr uint32_t kLbo = 128;                   // next 4 K values: the next core matrix
+constexpr uint32_t kSbo = 128 * (kBK / 4);       // next 8 rows: past a row group's K
+constexpr uint32_t kARowBytes = 128;             // a row of A's stage: 16 float2, or 16 floats x 2 planes
+constexpr int kLdO = kTJ + 4;                    // phase 2 epilogue pitch (floats)
+constexpr int kXRows = 128;                      // phase 1: pulses a block
 
-static_assert(kLdA % 32 == 20, "conflict-free A fragments");
+static_assert(kTJ % 8 == 0 && kN <= 256, "wgmma N");
+static_assert(kBK == 16, "two 8-deep steps a stage; 128-byte X rows, 64-byte W rows");
 
-template <int TJ>
-struct Tile {
-  static constexpr int kNT = TJ / 8;                 // n8 tiles per warp
-  static constexpr int kLdB = TJ + 2;                // split B plane pitch (uint4)
-  static constexpr int kAFloats = 2 * kRows * kLdA;  // X [kRows][kLdA] float2 | W re, im planes
-  // B: per 8-deep K-step, hi and lo planes [4][kLdB] uint4 (put_b_quads)
-  static constexpr int kStageFloats = kAFloats + (kBK / 8) * 2 * 4 * kLdB * 4;
-  static constexpr int kItems = kBK / 2 * TJ;        // B (row pair, column) items per stage
-  static_assert(TJ % 8 == 0 && kItems <= kThreads, "tile width");
-  static_assert(kLdB % 8 == 2 && kStageFloats % 4 == 0, "conflict-free, 16-byte aligned B");
-
-  // the ring, then this block's P slice [rows_per][TJ] float2
-  static size_t smem_bytes(int rows_per) {
-    return sizeof(float) * (static_cast<size_t>(kStages) * kStageFloats +
-                            static_cast<size_t>(rows_per) * TJ * 2);
-  }
-};
-
-// One block's passes of a complex GEMM through the ring: `n_pass` passes of
-// `n_k` K-stages; warp w owns A rows [16 w, 16 w + 16) of a pass and all TJ
-// columns.  load_a(pass, k, slot) issues the cp.async copies of a stage;
-// fetch_b(k) loads this thread's B item of a stage into registers,
-// put_b(slot) splits and stores it; frag_a(a, stage, k8) loads this warp's
-// A fragment; busy(pass) says whether this warp has rows in the pass
-// (warp-uniform); done(pass, re, im) is the epilogue of a pass.
-template <int TJ, class LoadA, class FetchB, class PutB, class FragAFn, class Busy, class Done>
-__device__ __forceinline__ void run_passes(float* smem, int n_pass, int n_k, LoadA load_a,
-                                           FetchB fetch_b, PutB put_b, FragAFn frag_a,
-                                           Busy busy, Done done) {
-  using T = Tile<TJ>;
-  constexpr int kNT = T::kNT;
-  const int lane = threadIdx.x & 31;
-  const int total = n_pass * n_k;
-
-  int la_pass = 0, la_k = 0, la_slot = 0;  // the next stage to load
-  auto load_next = [&]() {
-    load_a(la_pass, la_k, la_slot);
-    if (++la_k == n_k) la_k = 0, ++la_pass;
-    if (++la_slot == kStages) la_slot = 0;
-  };
-  int fb_k = 0;                            // the next B stage to fetch
-  auto fetch_next = [&]() {
-    fetch_b(fb_k);
-    if (++fb_k == n_k) fb_k = 0;
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < total) load_next();
-    cp_async_commit();
-  }
-  if (total > 0) {
-    fetch_next();
-    put_b(0);
-  }
-  if (total > 1) fetch_next();
-
-  float acc_re[kNT][4], acc_im[kNT][4];
-#pragma unroll
-  for (int j = 0; j < kNT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_re[j][e] = acc_im[j][e] = 0.f;
-
-  int pass = 0, k = 0, slot = 0;
-  for (int s = 0; s < total; ++s) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();               // stage s is in its slot; slot s - 1 is free
-    if (s + kStages - 1 < total) load_next();
-    cp_async_commit();
-    const int slot1 = slot + 1 == kStages ? 0 : slot + 1;
-    if (s + 1 < total) put_b(slot1);  // read at s + 1, after its barrier
-    if (s + 2 < total) fetch_next();  // in flight while stage s computes
-
-    if (busy(pass)) {
-      const float* stage = smem + slot * T::kStageFloats;
-      const uint4* s_b = reinterpret_cast<const uint4*>(stage + T::kAFloats);
-      float pr[kNT][4], pi[kNT][4];  // partial sums of the stage
-#pragma unroll
-      for (int k8 = 0; k8 < kBK; k8 += 8) {
-        FragB bf[kNT];
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-          load_b_quads(bf[j], s_b + k8 * T::kLdB + j * 8, T::kLdB, lane);
-        FragA a;
-        frag_a(a, stage, k8);
-        if (k8 == 0) cmma_n<true>(pr, pi, a, bf);
-        else cmma_n<false>(pr, pi, a, bf);
-      }
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) flush(acc_re[j], acc_im[j], pr[j], pi[j]);
-    }
-    if (++k == n_k) {              // the pass is complete
-      done(pass, acc_re, acc_im);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_re[j][e] = acc_im[j][e] = 0.f;
-      k = 0;
-      ++pass;
-    }
-    slot = slot1;
-  }
-  cp_async_wait<0>();
-}
-
-template <int TJ>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_pc_rdm_kernel(const float2* __restrict__ x, long long sb, int ldx,
-                    const float* __restrict__ m_re, const float* __restrict__ m_im,
-                    const float* __restrict__ w_re, const float* __restrict__ w_im,
-                    float* __restrict__ out, int n_prt, int n_in, int n_out, int n_fft,
-                    int rows_per, int x_vec, int w_vec) {
-  using T = Tile<TJ>;
-  constexpr int kNT = T::kNT;
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ __align__(16) float smem[];
-  float2* s_p = reinterpret_cast<float2*>(smem + kStages * T::kStageFloats);  // [rows_per][TJ]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int j0 = (blockIdx.x / kCluster) * TJ;
-  const int b = blockIdx.y;
-  const int n_prt_pad = round_up(n_prt, kBK);
-  const int p_lo = rank * rows_per;                       // this block's P rows
-  const int n_rows = min(rows_per, n_prt_pad - p_lo);     // may be <= 0
-
-  // B: this thread's item of a stage, the values at rows b_k and b_k + 4 of
-  // column b_n, split and stored as one hi and one lo quad (put_b_quads)
-  const int b_n = tid % TJ;
-  const int b_q = tid / TJ;                                // 8-deep step * 4 + row t
-  const int b_k = (b_q >> 2) * 8 + (b_q & 3);
-  const bool b_on = tid < T::kItems;
-  float2 b_reg0 = make_float2(0.f, 0.f), b_reg1 = make_float2(0.f, 0.f);
-  auto put_b = [&](int slot) {
-    uint4* dst = reinterpret_cast<uint4*>(smem + slot * T::kStageFloats + T::kAFloats) +
-                 (b_q >> 2) * 8 * T::kLdB + (b_q & 3) * T::kLdB + b_n;
-    if (b_on) put_b_quads(dst, dst + 4 * T::kLdB, b_reg0, b_reg1);
-  };
-
-  // ------------------------------------------------ phase 1: P slice = X M_j
-  {
-    const int p_end = min(p_lo + n_rows, n_prt);          // rows read from X
-    const float2* xb = x + static_cast<size_t>(b) * sb;
-    auto load_a = [&](int pass, int k, int slot) {
-      float2* s_x = reinterpret_cast<float2*>(smem + slot * T::kStageFloats);
-      const int r0 = p_lo + pass * kRows;
-      const int i0 = k * kBK;
-      if (x_vec) {  // 2 samples per copy
-        const int r = tid >> 3, q = (tid & 7) * 2;
-        const int gi = i0 + q;
-        const int cols = gi < n_in ? 8 * min(2, n_in - gi) : 0;
-#pragma unroll
-        for (int e = 0; e < kRows / 32; ++e) {
-          const int gp = r0 + r + 32 * e;
-          const int bytes = gp < p_end ? cols : 0;
-          const float2* src = bytes ? xb + static_cast<size_t>(gp) * ldx + gi : xb;
-          cp_async16(s_x + (r + 32 * e) * kLdA + q, src, bytes);
-        }
-      } else {
-        const int r = tid >> 4, q = tid & 15;
-        const int gi = i0 + q;
-#pragma unroll
-        for (int e = 0; e < kRows / 16; ++e) {
-          const int gp = r0 + r + 16 * e;
-          const int bytes = (gp < p_end && gi < n_in) ? 8 : 0;
-          const float2* src = bytes ? xb + static_cast<size_t>(gp) * ldx + gi : xb;
-          cp_async8(s_x + (r + 16 * e) * kLdA + q, src, bytes);
-        }
-      }
-    };
-    auto fetch_b = [&](int k) {  // M rows [16 k, 16 k + 16), columns j0 + [0, TJ)
-      const int gi = k * kBK + b_k, gj = j0 + b_n;
-      b_reg0 = b_reg1 = make_float2(0.f, 0.f);
-      if (b_on && gj < n_out) {
-        const size_t off = static_cast<size_t>(gi) * n_out + gj;
-        if (gi < n_in) b_reg0 = make_float2(__ldg(m_re + off), __ldg(m_im + off));
-        if (gi + 4 < n_in) {
-          const size_t off4 = off + 4 * static_cast<size_t>(n_out);
-          b_reg1 = make_float2(__ldg(m_re + off4), __ldg(m_im + off4));
-        }
-      }
-    };
-    auto frag_a = [&](FragA& a, const float* stage, int k8) {
-      load_a_cplx(a, reinterpret_cast<const float2*>(stage) + warp * 16 * kLdA + k8, kLdA, lane);
-    };
-    auto busy = [&](int pass) { return pass * kRows + warp * 16 < n_rows; };
-    auto done = [&](int pass, float (&re)[kNT][4], float (&im)[kNT][4]) {
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = pass * kRows + warp * 16 + acc_row(lane, e);
-          if (r < n_rows) s_p[r * TJ + j * 8 + acc_col(lane, e)] = make_float2(re[j][e], im[j][e]);
-        }
-    };
-    const int n_pass = n_rows > 0 ? (n_rows + kRows - 1) / kRows : 0;
-    run_passes<TJ>(smem, n_pass, (n_in + kBK - 1) / kBK, load_a, fetch_b, put_b, frag_a, busy,
-                   done);
-  }
-
-  cluster.sync();  // every slice of P is formed and visible to the cluster
-
-  // ------------------------------------- phase 2: |W P| over this block's passes
-  {
-    const int n_k = n_prt_pad / kBK;
-    const int n_all = (n_fft + kRows - 1) / kRows;         // Doppler passes of the tile
-    const int n_pass = rank < n_all ? (n_all - 1 - rank) / kCluster + 1 : 0;
-    float* ob = out + static_cast<size_t>(b) * n_fft * n_out;
-    auto load_a = [&](int pass, int k, int slot) {
-      float* s_wr = smem + slot * T::kStageFloats;
-      float* s_wi = s_wr + kRows * kLdA;
-      const int k0 = (rank + pass * kCluster) * kRows;
-      const int p0 = k * kBK;
-      if (w_vec) {  // 4 pulses per copy
-        const int m = tid >> 2, q = (tid & 3) * 4;
-        const int gp = p0 + q;
-        const int cols = gp < n_prt ? 4 * min(4, n_prt - gp) : 0;
-#pragma unroll
-        for (int e = 0; e < kRows / 64; ++e) {
-          const int gk = k0 + m + 64 * e;
-          const int bytes = gk < n_fft ? cols : 0;
-          const size_t off = bytes ? static_cast<size_t>(gk) * n_prt + gp : 0;
-          cp_async16(s_wr + (m + 64 * e) * kLdA + q, w_re + off, bytes);
-          cp_async16(s_wi + (m + 64 * e) * kLdA + q, w_im + off, bytes);
-        }
-      } else {
-        const int m = tid >> 4, q = tid & 15;
-        const int gp = p0 + q;
-#pragma unroll
-        for (int e = 0; e < kRows / 16; ++e) {
-          const int gk = k0 + m + 16 * e;
-          const int bytes = (gk < n_fft && gp < n_prt) ? 4 : 0;
-          const size_t off = bytes ? static_cast<size_t>(gk) * n_prt + gp : 0;
-          cp_async4(s_wr + (m + 16 * e) * kLdA + q, w_re + off, bytes);
-          cp_async4(s_wi + (m + 16 * e) * kLdA + q, w_im + off, bytes);
-        }
-      }
-    };
-    // P stage k: 16 rows of the owning block's slice, through distributed
-    // shared memory.  Stages advance by 16 rows and slices hold a multiple
-    // of 16, so a stage never straddles two owners.
-    int owner = 0, row = 0;
-    auto fetch_b = [&](int k) {
-      if (k == 0) owner = 0, row = 0;
-      const float2* src = cluster.map_shared_rank(s_p, owner) + (row + b_k) * TJ + b_n;
-      if (b_on) {
-        b_reg0 = src[0];
-        b_reg1 = src[4 * TJ];
-      }
-      row += kBK;
-      if (row == rows_per) row = 0, ++owner;
-    };
-    auto frag_a = [&](FragA& a, const float* stage, int k8) {
-      const float* s_wr = stage + warp * 16 * kLdA + k8;
-      load_a_planes(a, s_wr, s_wr + kRows * kLdA, kLdA, lane);
-    };
-    auto busy = [&](int pass) { return (rank + pass * kCluster) * kRows + warp * 16 < n_fft; };
-    auto done = [&](int pass, float (&re)[kNT][4], float (&im)[kNT][4]) {
-      const int k0 = (rank + pass * kCluster) * kRows + warp * 16;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = k0 + acc_row(lane, e);
-          const int c = j0 + j * 8 + acc_col(lane, e);
-          if (r < n_fft && c < n_out)
-            ob[static_cast<size_t>(r) * n_out + c] =
-                sqrtf(re[j][e] * re[j][e] + im[j][e] * im[j][e]);
-        }
-    };
-    run_passes<TJ>(smem, n_pass, n_k, load_a, fetch_b, put_b, frag_a, busy, done);
-  }
-
-  cluster.sync();  // no block leaves while a peer may still read its P slice
-}
-
-// The launch shape: tile width, P rows per block and shared memory per block.
+template <int kWG>
 struct Shape {
-  int tj, rows_per;
-  size_t smem;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kRows = 64 * kWG;                        // A rows a block
+  static constexpr uint32_t kABytes = kARowBytes * kRows;       // A's stage
+  static constexpr uint32_t kStageBytes = kABytes + kBStageBytes;
+  static_assert(kStageBytes % 1024 == 0, "stages on the 1024-byte swizzle period");
+  static constexpr size_t kSmem = size_t(kStages) * kStageBytes + kStages * sizeof(uint64_t) + 1024;
+  static_assert(size_t(kRows) * kLdO * sizeof(float) <= size_t(kStages) * kStageBytes,
+                "the epilogue tile fits the ring");
 };
 
-Shape pick_shape(int n_prt, int n_out, int batch, int n_sms) {
-  const int rows_per = round_up((round_up(n_prt, kBK) + kCluster - 1) / kCluster, kBK);
-  // 32-column tiles where they give two blocks per SM and fit, else 16
-  const long long wide_blocks = static_cast<long long>((n_out + 31) / 32) * batch * kCluster;
-  const size_t wide = Tile<32>::smem_bytes(rows_per);
-  if (wide_blocks >= 2LL * n_sms && wide <= kMaxSmem) return Shape{32, rows_per, wide};
-  return Shape{16, rows_per, Tile<16>::smem_bytes(rows_per)};
+// The A operand's tensor maps: X (phase 1), or W's re and im planes (phase 2).
+struct Maps {
+  CUtensorMap a0;
+  CUtensorMap a1;
+};
+
+struct Args {
+  const float2* x;          // phase 1: echo (element (b, p, i) at b sb + p ldx + i)
+  long long sb;
+  int ldx;
+  const float* w_re;        // phase 2: DFT planes (n_fft, n_prt)
+  const float* w_im;
+  const float* b_img;       // B's image: M's (phase 1) or P's (phase 2)
+  float* p_img;             // phase 1 writes P's image
+  float* out;               // phase 2 writes |W P| (batch, n_fft, n_out)
+  int batch, n_prt, n_in, n_out, n_fft;
+  int a_tma;                // A staged by TMA, else by cp.async
+};
+
+// Byte offsets in A's stage, as the TMA swizzle places a 16-byte chunk:
+// rows of 128 bytes (128-byte swizzle: chunk ^= row % 8) and rows of 64
+// bytes (64-byte swizzle: chunk ^= (row / 2) % 4), stages 1024-aligned.
+__device__ __forceinline__ uint32_t sw128(uint32_t row, uint32_t chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+__device__ __forceinline__ uint32_t sw64(uint32_t row, uint32_t chunk) {
+  return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
 }
 
-template <int TJ>
-int launch(const Shape& shape, const float2* x, long long sb, int ldx, const float* m_re,
-           const float* m_im, const float* w_re, const float* w_im, float* out, int batch,
-           int n_prt, int n_in, int n_out, int n_fft, int x_vec, int w_vec, cudaStream_t stream) {
-  auto kernel = fused_pc_rdm_kernel<TJ>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(shape.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((n_out + TJ - 1) / TJ) * kCluster, batch, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = shape.smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, x, sb, ldx, m_re, m_im, w_re, w_im, out, n_prt, n_in,
-                           n_out, n_fft, shape.rows_per, x_vec, w_vec);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+// A's fragment of one 8-deep step, split into TF32 hi/lo (element e at row
+// g + 8 (e & 1), K t + 4 (e >> 1) of the warp's 16 rows).
+struct FragA {
+  uint32_t rh[4], rl[4], ih[4], il[4];
+};
+
+__device__ __forceinline__ void set_frag(FragA& f, int e, float re, float im) {
+  split(re, f.rh[e], f.rl[e]);
+  split(im, f.ih[e], f.il[e]);
+}
+
+__device__ __forceinline__ void fence_frag(FragA& f) {
+  fence_operands(f.rh);
+  fence_operands(f.rl);
+  fence_operands(f.ih);
+  fence_operands(f.il);
+}
+
+__device__ __forceinline__ void flush(float (&acc)[kAcc], float (&part)[kAcc]) {
+  fence_operands(part);
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] += part[i];
+}
+
+// The six products of one 8-deep step into `p` (a true kFirst starts the
+// partial); `b` is the image stage: hi part [-Bi; Br; Bi], then lo.
+template <bool kFirst>
+__device__ __forceinline__ void mma_step(float (&p)[kAcc], FragA& f, const uint8_t* b, int step) {
+  const uint8_t* s = b + step * 2 * 128;  // two core matrices along K a step
+  constexpr uint32_t kSub = sizeof(float) * kSubFloats, kPart = sizeof(float) * kPartFloats;
+  const uint64_t b_hi = gmma_desc(s + kSub, kLbo, kSbo);
+  const uint64_t b_lo = gmma_desc(s + kPart + kSub, kLbo, kSbo);
+  const uint64_t bn_hi = gmma_desc(s, kLbo, kSbo);
+  const uint64_t bn_lo = gmma_desc(s + kPart, kLbo, kSbo);
+  fence_operands(p);
+  fence_frag(f);
+  wgmma_fence();
+  wgmma_m64n96k8_tf32<kFirst ? 0 : 1>(p, f.rl, b_hi);
+  wgmma_m64n96k8_tf32<1>(p, f.rh, b_lo);
+  wgmma_m64n96k8_tf32<1>(p, f.il, bn_hi);
+  wgmma_m64n96k8_tf32<1>(p, f.ih, bn_lo);
+  wgmma_m64n96k8_tf32<1>(p, f.rh, b_hi);
+  wgmma_m64n96k8_tf32<1>(p, f.ih, bn_hi);
+  wgmma_commit();
+  fence_operands(p);
+  fence_frag(f);
+}
+
+// The main loop both phases share: n_kt stages of 16-deep K through the
+// ring, summed into acc (FP32 totals).  load_a(kt, stage) stages A (by TMA
+// from thread 0, or by every thread's cp.async); a_tx is the bytes its TMA
+// brings a stage; frag(f, stage, k8) loads this thread's A fragment.  B's
+// stage kt is the image stage at b_img + kt * b_step floats.
+template <int kWG, class LoadA, class Frag>
+__device__ __forceinline__ void main_loop(uint8_t* smem, uint64_t* full, const float* b_img,
+                                          size_t b_step, int n_kt, uint32_t a_tx, LoadA load_a,
+                                          Frag frag, float (&acc)[kAcc]) {
+  using S = Shape<kWG>;
+  const int tid = threadIdx.x;
+
+  auto load = [&](int kt, int slot) {
+    uint8_t* st = smem + slot * S::kStageBytes;
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&full[slot], kBStageBytes + a_tx);
+      bulk_g2s(st + S::kABytes, b_img + kt * b_step, kBStageBytes, &full[slot]);
+    }
+    load_a(kt, st, &full[slot]);
+  };
+
+  float part[2][kAcc];
+  FragA fa[2];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = part[0][i] = part[1][i] = 0.f;
+
+  // Stage kt into partial P, which sums two stages (32-deep K).  The first
+  // step's wait of a partial's first stage completes the stage before it,
+  // whose partial (the other one) is then flushed into acc; fragment buffer
+  // fa[s] is rewritten only after the step that read it has completed.
+  auto stage = [&](auto par, auto first, int kt) {
+    constexpr int P = decltype(par)::value;
+    constexpr bool kFirst = decltype(first)::value;
+    const int slot = kt % kStages;
+    mbar_wait(&full[slot], (kt / kStages) & 1);
+    __syncthreads();  // slot kt - 2 is read by no thread and no wgmma
+    if (kt + kStages - 2 < n_kt) load(kt + kStages - 2, (kt + kStages - 2) % kStages);
+    const uint8_t* st = smem + slot * S::kStageBytes;
+#pragma unroll
+    for (int s = 0; s < kBK / 8; ++s) {
+      frag(fa[s], st, 8 * s);
+      if (s == 0 && kFirst)
+        mma_step<true>(part[P], fa[0], st + S::kABytes, 0);
+      else
+        mma_step<false>(part[P], fa[s], st + S::kABytes, s);
+      wgmma_wait<1>();
+      if (s == 0 && kFirst) flush(acc, part[1 - P]);
+    }
+  };
+
+  for (int s = 0; s < kStages - 2; ++s)
+    if (s < n_kt) load(s, s);
+  using Yes = std::true_type;
+  using No = std::false_type;
+  using P0 = std::integral_constant<int, 0>;
+  using P1 = std::integral_constant<int, 1>;
+#pragma unroll 1
+  for (int kt = 0; kt < n_kt; kt += 4) {
+    stage(P0{}, Yes{}, kt);
+    if (kt + 1 < n_kt) stage(P0{}, No{}, kt + 1);
+    if (kt + 2 < n_kt) stage(P1{}, Yes{}, kt + 2);
+    if (kt + 3 < n_kt) stage(P1{}, No{}, kt + 3);
+  }
+  wgmma_wait<0>();
+  if ((n_kt - 1) % 4 < 2)  // the last partial: part[0] if it began on a multiple of 4
+    flush(acc, part[0]);
+  else
+    flush(acc, part[1]);
+}
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023) & ~1023u) - a);
+}
+
+// ------------------------------------------------------------ phase 1: X M
+// Block (j tile, pulse tile, beam): P rows p0 + [0, 128) x columns j0 + [0, 48).
+__global__ void __launch_bounds__(256, 1)
+pc_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using S = Shape<2>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * S::kStageBytes);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int jt = blockIdx.x, p0 = blockIdx.y * kXRows, b = blockIdx.z;
+  const int n_kt = (a.n_in + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], a.a_tma ? 1 : 1 + S::kThreads);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const float2* xb = a.x + static_cast<size_t>(b) * a.sb;
+  auto load_a = [&](int kt, uint8_t* st, uint64_t* bar) {
+    if (a.a_tma) {
+      if (tid == 0) tma_load_3d(st, &maps.a0, 2 * kBK * kt, p0, b, bar);
+    } else {  // 8 bytes a sample, the edges zero-filled
+#pragma unroll 1
+      for (int i = 0; i < kXRows * kBK / S::kThreads; ++i) {
+        const int e = tid + i * S::kThreads;
+        const int r = e / kBK, k = e % kBK;
+        const int p = p0 + r, s = kt * kBK + k;
+        const bool ok = p < a.n_prt && s < a.n_in;
+        cp_async8(st + sw128(r, k >> 1) + (k & 1) * 8,
+                  ok ? xb + static_cast<size_t>(p) * a.ldx + s : a.x, ok ? 8 : 0);
+      }
+      cp_async_mbar_arrive_noinc(bar);
+    }
+  };
+  auto frag = [&](FragA& f, const uint8_t* st, int k8) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = warp * 16 + g + 8 * (e & 1), k = k8 + t + 4 * (e >> 1);
+      const float2 v = *reinterpret_cast<const float2*>(st + sw128(r, k >> 1) + (k & 1) * 8);
+      set_frag(f, e, v.x, v.y);
+    }
+  };
+
+  float acc[kAcc];
+  main_loop<2>(smem, full, a.b_img + static_cast<size_t>(jt) * n_kt * kImageStageFloats,
+               kImageStageFloats, n_kt, a.a_tma ? S::kABytes : 0, load_a, frag, acc);
+
+  // P, rounded to float32, split into P's image: stage (c / 48, p / 16),
+  // parts hi/lo of [-Pi; Pr; Pi], row c % 48, K p % 16.  Pulses past n_prt
+  // up to the stage are zero (X's rows there read zero).
+  const int n_kt2 = (a.n_prt + kBK - 1) / kBK;
+#pragma unroll
+  for (int j = 0; j < kTJ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + warp * 16 + g + 8 * (e >> 1);
+      const int jo = jt * kTJ + 8 * j + 2 * t + (e & 1);
+      if (p >= n_kt2 * kBK || jo >= a.n_out) continue;
+      const float re = acc[4 * j + e], im = acc[4 * (j + kTJ / 8) + e];
+      const int c = b * a.n_out + jo, cr = c % kTJ;
+      float* dst = a.p_img + (static_cast<size_t>(c / kTJ) * n_kt2 + p / kBK) * kImageStageFloats +
+                   (cr >> 3) * 128 + ((p & 15) >> 2) * 32 + (cr & 7) * 4 + (p & 3);
+      uint32_t hi, lo;
+      split(-im, hi, lo);
+      dst[0] = __uint_as_float(hi);
+      dst[kPartFloats] = __uint_as_float(lo);
+      split(re, hi, lo);
+      dst[kSubFloats] = __uint_as_float(hi);
+      dst[kPartFloats + kSubFloats] = __uint_as_float(lo);
+      split(im, hi, lo);
+      dst[2 * kSubFloats] = __uint_as_float(hi);
+      dst[kPartFloats + 2 * kSubFloats] = __uint_as_float(lo);
+    }
+}
+
+// ------------------------------------------------------- phase 2: |W P|
+// Block (Doppler tile, column tile): rows d0 + [0, 64 kWG) x columns c0 + [0, 48).
+template <int kWG>
+__global__ void __launch_bounds__(128 * kWG, 1)
+rdm_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using S = Shape<kWG>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * S::kStageBytes);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int d0 = blockIdx.x * S::kRows, c0 = blockIdx.y * kTJ;
+  const int n_kt = (a.n_prt + kBK - 1) / kBK;
+  constexpr uint32_t kPlane = 64 * S::kRows;  // W's im plane after its re plane
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], a.a_tma ? 1 : 1 + S::kThreads);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load_a = [&](int kt, uint8_t* st, uint64_t* bar) {
+    if (a.a_tma) {
+      if (tid == 0) {
+        tma_load_2d(st, &maps.a0, kBK * kt, d0, bar);
+        tma_load_2d(st + kPlane, &maps.a1, kBK * kt, d0, bar);
+      }
+    } else {  // 4 bytes a value, the edges zero-filled
+#pragma unroll 1
+      for (int i = 0; i < 2 * S::kRows * kBK / S::kThreads; ++i) {
+        const int e = tid + i * S::kThreads;
+        const int plane = e / (S::kRows * kBK), r = (e / kBK) % S::kRows, k = e % kBK;
+        const int d = d0 + r, p = kt * kBK + k;
+        const bool ok = d < a.n_fft && p < a.n_prt;
+        const float* w = plane ? a.w_im : a.w_re;
+        cp_async4(st + plane * kPlane + sw64(r, k >> 2) + (k & 3) * 4,
+                  ok ? w + static_cast<size_t>(d) * a.n_prt + p : w, ok ? 4 : 0);
+      }
+      cp_async_mbar_arrive_noinc(bar);
+    }
+  };
+  auto frag = [&](FragA& f, const uint8_t* st, int k8) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = warp * 16 + g + 8 * (e & 1);
+      const uint32_t off = sw64(r, (k8 >> 2) + (e >> 1)) + t * 4;
+      set_frag(f, e, *reinterpret_cast<const float*>(st + off),
+               *reinterpret_cast<const float*>(st + kPlane + off));
+    }
+  };
+
+  float acc[kAcc];
+  main_loop<kWG>(smem, full, a.b_img + static_cast<size_t>(blockIdx.y) * n_kt * kImageStageFloats,
+                 kImageStageFloats, n_kt, a.a_tma ? 2 * kPlane : 0, load_a, frag, acc);
+  __syncthreads();  // every stage has landed and been read: the ring is free
+
+  float* so = reinterpret_cast<float*>(smem);  // [Doppler row][column]
+#pragma unroll
+  for (int j = 0; j < kTJ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float re = acc[4 * j + e], im = acc[4 * (j + kTJ / 8) + e];
+      so[(warp * 16 + g + 8 * (e >> 1)) * kLdO + 8 * j + 2 * t + (e & 1)] =
+          sqrtf(re * re + im * im);
+    }
+  __syncthreads();
+  const int n_cols = a.batch * a.n_out;
+  for (int i = tid; i < S::kRows * kTJ; i += S::kThreads) {
+    const int r = i / kTJ, cc = i % kTJ;
+    const int d = d0 + r, c = c0 + cc;
+    if (d < a.n_fft && c < n_cols) {
+      const int b = c / a.n_out, j = c - b * a.n_out;
+      a.out[(static_cast<size_t>(b) * a.n_fft + d) * a.n_out + j] = so[r * kLdO + cc];
+    }
+  }
+}
+
+// ------------------------------------------------- M's image, once an operator
+// img[jt][kt][part][sub][n / 8][k / 4][n % 8][k % 4]: parts hi/lo, sub-planes
+// -Mi, Mr, Mi at output column j = 48 jt + n and sample i = 16 kt + k; zero
+// past n_in and n_out.
+__global__ void __launch_bounds__(256)
+split_m_kernel(const float* __restrict__ m_re, const float* __restrict__ m_im,
+               float* __restrict__ img, int n_in, int n_out) {
+  const int kt = blockIdx.x, jt = blockIdx.y;
+  float* dst = img + (static_cast<size_t>(jt) * gridDim.x + kt) * kImageStageFloats;
+  for (int i = threadIdx.x; i < kPartFloats; i += blockDim.x) {
+    const int sub = i / kSubFloats, e = i % kSubFloats;
+    const int n = (e / 128) * 8 + (e / 4) % 8, k = ((e / 32) % 4) * 4 + e % 4;
+    const int j = jt * kTJ + n, s = kt * kBK + k;
+    float v = 0.f;
+    if (j < n_out && s < n_in) {
+      const size_t at = static_cast<size_t>(s) * n_out + j;
+      v = sub == 1 ? m_re[at] : (sub == 0 ? -m_im[at] : m_im[at]);
+    }
+    uint32_t hi, lo;
+    split(v, hi, lo);
+    dst[i] = __uint_as_float(hi);
+    dst[kPartFloats + i] = __uint_as_float(lo);
+  }
+}
+
+long long image_floats(int n_rows, int n_k) {
+  return static_cast<long long>((n_rows + kTJ - 1) / kTJ) * ((n_k + kBK - 1) / kBK) *
+         kImageStageFloats;
+}
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;  // once a build (a benign race between threads)
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(bytes));
+  done = err == cudaSuccess;
+  return err;
+}
+
+cudaError_t encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                   const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+template <int kWG>
+cudaError_t launch_rdm(const Args& args, int w_tma, cudaStream_t st) {
+  using S = Shape<kWG>;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(rdm_kernel<kWG>, S::kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  Maps maps{};
+  if (w_tma) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(args.n_prt),
+                                static_cast<cuuint64_t>(args.n_fft)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(args.n_prt) * 4};
+    const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(S::kRows)};
+    err = encode(&maps.a0, args.w_re, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err == cudaSuccess)
+      err = encode(&maps.a1, args.w_im, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err != cudaSuccess) return err;
+  }
+  Args a = args;
+  a.a_tma = w_tma;
+  const dim3 grid((args.n_fft + S::kRows - 1) / S::kRows,
+                  (args.batch * args.n_out + kTJ - 1) / kTJ);
+  rdm_kernel<kWG><<<grid, S::kThreads, S::kSmem, st>>>(maps, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory one block of the launch shape takes for these
-// dimensions (the wrapper rejects what exceeds a block's 227 KB).
-extern "C" int rsp_fused_pc_rdm_smem_bytes(int n_prt, int n_out, int batch, int n_sms) {
-  return static_cast<int>(pick_shape(n_prt, n_out, batch, n_sms).smem);
+// Shared memory of one block of either phase (bytes).
+extern "C" int rsp_fused_pc_rdm_smem_bytes() { return static_cast<int>(Shape<2>::kSmem); }
+
+// M's image into `img` of `img_floats` floats (the wrapper's
+// pc_operator_image; its plain twin is pc_operator_image_plain).
+extern "C" int rsp_fused_pc_rdm_split_m(const void* m_re, const void* m_im, void* img,
+                                        long long img_floats, int n_in, int n_out,
+                                        void* stream) {
+  if (img_floats != image_floats(n_out, n_in)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n_in + kBK - 1) / kBK, (n_out + kTJ - 1) / kTJ);
+  split_m_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(m_re), static_cast<const float*>(m_im), static_cast<float*>(img),
+      n_in, n_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Launches on `stream`; returns the first cudaError_t (0 on success).
-// x: complex64 with unit fast-time stride, row stride `ldx`, batch stride `sb`
-// (complex elements); m_re/m_im (n_in, n_out), w_re/w_im (n_fft, n_prt)
-// contiguous float32; out (batch, n_fft, n_out) float32.  `n_sms` is the
-// card's SM count.  `x_vec` = 1 when x is 16-byte aligned and ldx and sb are
-// even; `w_vec` = 1 when n_prt % 4 == 0 and the W planes are 16-byte aligned.
-extern "C" int rsp_fused_pc_rdm(const void* x, long long sb, int ldx, const void* m_re,
-                                const void* m_im, const void* w_re, const void* w_im,
-                                void* out, int batch, int n_prt, int n_in, int n_out,
-                                int n_fft, int n_sms, int x_vec, int w_vec, void* stream) {
-  const Shape shape = pick_shape(n_prt, n_out, batch, n_sms);
-  const auto* xp = static_cast<const float2*>(x);
-  const auto* mr = static_cast<const float*>(m_re);
-  const auto* mi = static_cast<const float*>(m_im);
-  const auto* wr = static_cast<const float*>(w_re);
-  const auto* wi = static_cast<const float*>(w_im);
-  auto* o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (shape.tj == 32)
-    return launch<32>(shape, xp, sb, ldx, mr, mi, wr, wi, o, batch, n_prt, n_in, n_out, n_fft,
-                      x_vec, w_vec, st);
-  return launch<16>(shape, xp, sb, ldx, mr, mi, wr, wi, o, batch, n_prt, n_in, n_out, n_fft,
-                    x_vec, w_vec, st);
+// Launches both phases on `stream`; returns the first cudaError_t (0 on
+// success).  x: complex64 with unit fast-time stride, row stride `ldx`,
+// batch stride `sb` (complex elements); m_img M's image (m_floats, checked);
+// w_re/w_im (n_fft, n_prt) contiguous float32; p_img a scratch of p_floats
+// for P's image; out (batch, n_fft, n_out) float32.  `x_tma` = 1 when x is
+// 16-byte aligned and ldx and sb are even (sb >= n_prt ldx); `w_tma` = 1 when
+// n_prt % 4 == 0 and the W planes are 16-byte aligned.  `n_sms` is the
+// card's SM count.
+extern "C" int rsp_fused_pc_rdm(const void* x, long long sb, int ldx, const void* m_img,
+                                long long m_floats, const void* w_re, const void* w_im,
+                                void* p_img, long long p_floats, void* out, int batch, int n_prt,
+                                int n_in, int n_out, int n_fft, int n_sms, int x_tma, int w_tma,
+                                void* stream) {
+  if (m_floats != image_floats(n_out, n_in) || p_floats != image_floats(batch * n_out, n_prt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  Args a{};
+  a.x = static_cast<const float2*>(x);
+  a.sb = sb;
+  a.ldx = ldx;
+  a.w_re = static_cast<const float*>(w_re);
+  a.w_im = static_cast<const float*>(w_im);
+  a.p_img = static_cast<float*>(p_img);
+  a.out = static_cast<float*>(out);
+  a.batch = batch;
+  a.n_prt = n_prt;
+  a.n_in = n_in;
+  a.n_out = n_out;
+  a.n_fft = n_fft;
+
+  // phase 1
+  static bool pc_smem_set = false;
+  cudaError_t err = allow_smem(pc_kernel, Shape<2>::kSmem, pc_smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Maps maps{};
+  if (x_tma) {
+    const cuuint64_t dims[3] = {2 * static_cast<cuuint64_t>(n_in),
+                                static_cast<cuuint64_t>(n_prt), static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ldx) * 8,
+                                   static_cast<cuuint64_t>(sb) * 8};
+    const cuuint32_t box[3] = {2 * kBK, kXRows, 1};
+    err = encode(&maps.a0, x, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  a.b_img = static_cast<const float*>(m_img);
+  a.a_tma = x_tma;
+  const dim3 grid1((n_out + kTJ - 1) / kTJ, (n_prt + kXRows - 1) / kXRows, batch);
+  pc_kernel<<<grid1, Shape<2>::kThreads, Shape<2>::kSmem, st>>>(maps, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // phase 2: blocks of two warpgroups where they fill the card, else of one
+  a.b_img = static_cast<const float*>(p_img);
+  const long long blocks2 = static_cast<long long>((n_fft + 127) / 128) *
+                            ((static_cast<long long>(batch) * n_out + kTJ - 1) / kTJ);
+  return static_cast<int>(blocks2 >= n_sms ? launch_rdm<2>(a, w_tma, st)
+                                           : launch_rdm<1>(a, w_tma, st));
 }

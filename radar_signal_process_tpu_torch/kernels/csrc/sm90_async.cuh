@@ -1,5 +1,6 @@
-// Hopper's asynchronous machinery for B2 (rdm.cu) and B1 (cfar.cu):
-// mbarriers, bulk and tensor copies by the TMA engine, warpgroup MMA (wgmma)
+// Hopper's asynchronous machinery for B2 (rdm.cu), B3 (pc_rdm.cu) and B1
+// (cfar.cu): mbarriers, bulk and tensor copies by the TMA engine and the
+// host-side lookup of the tensor-map encoder, warpgroup MMA (wgmma)
 // descriptors and the TF32 wgmma with A in registers.  sm_90a only (wgmma
 // does not exist on plain sm_90).
 //
@@ -28,6 +29,7 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -97,11 +99,43 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, 
          "r"(smem_u32(bar)) : "memory");
 }
 
+// The 3-D form of tma_load_2d: the box at column c0, row c1, plane c2.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(smem_u32(bar)) : "memory");
+}
+
 // One arrival on `bar` once every cp.async this thread has issued so far has
 // landed; the arrival is counted in the barrier's initial count (.noinc).
 __device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
                :: "r"(smem_u32(bar)) : "memory");
+}
+
+// ------------------------------------------------------------- tensor maps
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, as the CUDA runtime finds it, looked up once (so
+// the library needs no -lcuda); nullptr where it is missing.
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
 // --------------------------------------------------------------------- wgmma

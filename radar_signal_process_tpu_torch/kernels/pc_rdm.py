@@ -8,29 +8,41 @@ filter, :func:`pc_matrix_fir` for the short pulse's raw-tap FIR), W the
 windowed, zero-padded (n_fft, n_prt) DFT plane (``kernels.rdm.dft_planes``),
 both held as float32 re/im planes as the Pallas wrapper casts them.
 
-On a CUDA tensor :func:`fused_pc_rdm` launches ``csrc/pc_rdm.cu``: a
-thread-block cluster owns a range tile of the compressed pulses
-``P = X . M``; each block forms a slice of its rows in shared memory, and
-every block contracts its share of the Doppler rows with the whole of P,
-read from its peers through distributed shared memory.  Both products run
-on the tensor cores at FP32 accuracy (the 3xTF32 split of
-``csrc/cgemm_3xtf32.cuh``), with the magnitude as the epilogue; P never
-reaches device memory.  A G0 frame is ~35 GFLOP of that work, so it is
-bound by arithmetic.  The echo is read in place (unit fast-time stride, any
-row stride), so the pulse segments of a beam need no copy.  On a CPU tensor
-it runs :func:`fused_pc_rdm_plain`, two complex64 matmuls and ``abs``.
+On a CUDA tensor :func:`fused_pc_rdm` launches ``csrc/pc_rdm.cu``: both
+products run on Hopper's ``wgmma`` at FP32 accuracy (3xTF32, the complex
+operand split in registers as the A operand), staged by TMA through an
+mbarrier ring.  Phase 1 forms ``P = X . M`` against M's pre-split image
+(:func:`pc_operator_image`, made once per operator and kept, keyed on the
+planes' storage, shape and version) and writes P, split, as the image phase
+2 reads; phase 2 forms ``|W . P|`` with W's raw planes split in registers.
+A G0 frame is ~35 GFLOP of that work, so it is bound by arithmetic.  The
+echo is read in place (unit fast-time stride, any row stride), so the pulse
+segments of a beam need no copy.  On a CPU tensor it runs
+:func:`fused_pc_rdm_plain`, two complex64 matmuls and ``abs``.
 """
 
 from __future__ import annotations
 
+import collections
 import math
+import threading
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from radar_signal_process_tpu_torch.kernels import _build
+from radar_signal_process_tpu_torch.kernels.rdm import _tf32_split
 
-SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
+# csrc/pc_rdm.cu's tiling: output columns a tile (the wgmma's N is twice it:
+# re then im), K (samples, pulses) a stage of its ring, and the K its
+# tensor-core partials sum before they are added into FP32 totals
+TILE_COLS, STAGE_K = 48, 16
+PARTIAL_K = 2 * STAGE_K
+IMAGE_STAGE_FLOATS = 2 * 3 * TILE_COLS * STAGE_K
+_IMAGE_CACHE = 8  # operator images kept (G0Chain holds two operators)
+_images: collections.OrderedDict = collections.OrderedDict()
+_images_lock = threading.Lock()
 
 
 def pc_matrix_freq_domain(match_spec: np.ndarray, n_in: int, n_fft: int) -> np.ndarray:
@@ -73,6 +85,81 @@ def fused_pc_rdm_plain(
     return torch.matmul(torch.complex(w_re, w_im), p).abs()
 
 
+def wgmma_b_image_plain(b_re: torch.Tensor, b_im: torch.Tensor) -> torch.Tensor:
+    """The B operand image of ``csrc/pc_rdm.cu`` for a complex operand whose
+    rows (the product's output columns) are ``b_re + i b_im`` (N, K), K
+    contiguous: over each tile of TILE_COLS rows and each stage of STAGE_K,
+    the sub-planes ``-b_im, b_re, b_im`` split into TF32 hi/lo, zero-padded
+    to whole tiles and stages, in the kernel's shared-memory image
+    ``[tile][stage][part][sub][n // 8][k // 4][n % 8][k % 4]`` with parts
+    hi, lo, ``n < TILE_COLS``, ``k < STAGE_K`` (8-row x 4-value core
+    matrices, 128 bytes each)."""
+    n, k = b_re.shape
+    tiles, stages = -(-n // TILE_COLS), -(-k // STAGE_K)
+    pad = (0, stages * STAGE_K - k, 0, tiles * TILE_COLS - n)
+    sub = torch.stack([F.pad(-b_im, pad), F.pad(b_re, pad), F.pad(b_im, pad)])
+    parts = torch.stack(_tf32_split(sub))  # (part, sub, rows, K)
+    parts = parts.view(2, 3, tiles, TILE_COLS // 8, 8, stages, STAGE_K // 4, 4)
+    return parts.permute(2, 5, 0, 1, 3, 6, 4, 7).contiguous()
+
+
+def pc_operator_image_plain(m_re: torch.Tensor, m_im: torch.Tensor) -> torch.Tensor:
+    """Plain version of M's image: :func:`wgmma_b_image_plain` of M^T (rows
+    are the n_out output columns, K the n_in samples)."""
+    return wgmma_b_image_plain(m_re.t(), m_im.t())
+
+
+def pc_operator_image(m_re: torch.Tensor, m_im: torch.Tensor) -> torch.Tensor:
+    """M's image, which :func:`fused_pc_rdm` prepares once per operator: CPU
+    tensors get :func:`pc_operator_image_plain`, CUDA tensors the split
+    kernel of ``csrc/pc_rdm.cu`` (bit for bit the same image).  Counts no
+    launch."""
+    if m_re.shape != m_im.shape or m_re.dim() != 2:
+        raise ValueError(f"PC planes {tuple(m_re.shape)}/{tuple(m_im.shape)} differ or are not 2-D")
+    if m_re.device.type == "cpu":
+        return pc_operator_image_plain(m_re, m_im)
+    _check_planes_cuda(m_re.device, (("m_re", m_re), ("m_im", m_im)))
+    n_in, n_out = m_re.shape
+    img = torch.empty((-(-n_out // TILE_COLS), -(-n_in // STAGE_K), 2, 3, TILE_COLS // 8,
+                       STAGE_K // 4, 8, 4), dtype=torch.float32, device=m_re.device)
+    rc = _build.library().rsp_fused_pc_rdm_split_m(
+        m_re.data_ptr(), m_im.data_ptr(), img.data_ptr(), img.numel(), n_in, n_out,
+        torch.cuda.current_stream(m_re.device).cuda_stream,
+    )
+    _build.check(rc, "rsp_fused_pc_rdm_split_m")
+    return img
+
+
+def prepared_operator_image(m_re: torch.Tensor, m_im: torch.Tensor) -> torch.Tensor:
+    """:func:`pc_operator_image`, kept across calls: keyed on both planes'
+    ``data_ptr``, shape and device, and made again when either plane's
+    ``_version`` has moved (an in-place edit).  An entry holds the planes
+    themselves, so their storage cannot be freed and reused by other planes
+    while the entry lives; the last ``_IMAGE_CACHE`` operators are kept."""
+    key = (m_re.data_ptr(), m_im.data_ptr(), tuple(m_re.shape), str(m_re.device))
+    version = (m_re._version, m_im._version)
+    with _images_lock:
+        hit = _images.get(key)
+        if hit is not None and hit[2] == version:
+            _images.move_to_end(key)
+            return hit[3]
+        img = pc_operator_image(m_re, m_im)
+        _images[key] = (m_re, m_im, version, img)
+        _images.move_to_end(key)
+        while len(_images) > _IMAGE_CACHE:
+            _images.popitem(last=False)
+        return img
+
+
+def _check_planes_cuda(device: torch.device, tensors) -> None:
+    for name, t in tensors:
+        if t.dtype != torch.float32 or t.device != device or not t.is_contiguous():
+            raise ValueError(
+                f"fused_pc_rdm: {name} must be a contiguous float32 tensor on "
+                f"{device}, got {t.dtype} on {t.device}"
+            )
+
+
 def fused_pc_rdm(
     echo: torch.Tensor, m_re: torch.Tensor, m_im: torch.Tensor,
     w_re: torch.Tensor, w_im: torch.Tensor,
@@ -107,12 +194,8 @@ def fused_pc_rdm(
             f"fused_pc_rdm: echo must be complex64 with unit fast-time stride and "
             f"non-overlapping rows, got {echo.dtype} with strides {echo.stride()}"
         )
-    for name, t in (("m_re", m_re), ("m_im", m_im), ("w_re", w_re), ("w_im", w_im)):
-        if t.dtype != torch.float32 or t.device != echo.device or not t.is_contiguous():
-            raise ValueError(
-                f"fused_pc_rdm: {name} must be a contiguous float32 tensor on "
-                f"{echo.device}, got {t.dtype} on {t.device}"
-            )
+    _check_planes_cuda(echo.device, (("m_re", m_re), ("m_im", m_im), ("w_re", w_re),
+                                     ("w_im", w_im)))
     try:  # the leading axes must merge into one batch axis without a copy
         x3 = echo.view(-1, n_prt, n_in)
     except RuntimeError as err:
@@ -126,23 +209,30 @@ def fused_pc_rdm(
         raise ValueError(f"fused_pc_rdm: batch {batch} outside 1..65535")
     if min(n_prt, n_in, n_out, n_fft) < 1:
         raise ValueError(f"fused_pc_rdm: empty geometry {(n_prt, n_in, n_out, n_fft)}")
+    if -(-batch * n_out // TILE_COLS) > 65535:
+        raise ValueError(f"fused_pc_rdm: {batch} x {n_out} output columns exceed the grid")
     lib = _build.library()
-    sms = torch.cuda.get_device_properties(echo.device).multi_processor_count
-    smem = lib.rsp_fused_pc_rdm_smem_bytes(n_prt, n_out, batch, sms)
-    if smem > SMEM_LIMIT:
+    smem = lib.rsp_fused_pc_rdm_smem_bytes()
+    if smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"fused_pc_rdm: a {n_prt}-pulse P slice needs {smem} B of shared memory "
-            f"per block (> {SMEM_LIMIT})"
+            f"fused_pc_rdm: a block needs {smem} B of shared memory (> {_build.SMEM_LIMIT})"
         )
-    # 16-byte copies: 2 samples of an X row, 4 pulses of a W row
-    x_vec = int(x3.data_ptr() % 16 == 0 and x3.stride(0) % 2 == 0 and x3.stride(1) % 2 == 0)
-    w_vec = int(n_prt % 4 == 0 and w_re.data_ptr() % 16 == 0 and w_im.data_ptr() % 16 == 0)
+    m_img = prepared_operator_image(m_re, m_im)
+    p_img = torch.empty((-(-batch * n_out // TILE_COLS), -(-n_prt // STAGE_K),
+                         IMAGE_STAGE_FLOATS), dtype=torch.float32, device=echo.device)
+    ldx = x3.stride(1)
+    sb = x3.stride(0) if batch > 1 else n_prt * ldx
+    # TMA boxes: X 16-byte aligned with even strides, rows of a beam not
+    # overlapping the next; W rows whole 16 bytes
+    x_tma = int(x3.data_ptr() % 16 == 0 and ldx % 2 == 0 and sb % 2 == 0 and sb >= n_prt * ldx)
+    w_tma = int(n_prt % 4 == 0 and w_re.data_ptr() % 16 == 0 and w_im.data_ptr() % 16 == 0)
+    sms = torch.cuda.get_device_properties(echo.device).multi_processor_count
     out = torch.empty(batch_shape + (n_fft, n_out), dtype=torch.float32, device=echo.device)
     stream = torch.cuda.current_stream(echo.device).cuda_stream
     rc = lib.rsp_fused_pc_rdm(
-        x3.data_ptr(), x3.stride(0), x3.stride(1), m_re.data_ptr(), m_im.data_ptr(),
-        w_re.data_ptr(), w_im.data_ptr(), out.data_ptr(),
-        batch, n_prt, n_in, n_out, n_fft, sms, x_vec, w_vec, stream,
+        x3.data_ptr(), sb, ldx, m_img.data_ptr(), m_img.numel(), w_re.data_ptr(),
+        w_im.data_ptr(), p_img.data_ptr(), p_img.numel(), out.data_ptr(),
+        batch, n_prt, n_in, n_out, n_fft, sms, x_tma, w_tma, stream,
     )
     _build.check(rc, "rsp_fused_pc_rdm")
     fused_pc_rdm.launches += 1

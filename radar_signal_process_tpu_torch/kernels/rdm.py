@@ -29,7 +29,6 @@ import torch
 import torch.nn.functional as F
 
 from radar_signal_process_tpu_torch.kernels import _build
-from radar_signal_process_tpu_torch.kernels.pc_rdm import SMEM_LIMIT
 from radar_signal_process_tpu_torch.ops.mtd import dft_plane
 
 # csrc/rdm.cu's tiling: Doppler rows per block (the wgmma's N is twice it:
@@ -156,8 +155,10 @@ def doppler_rdm(
         raise ValueError(f"doppler_rdm: batch {batch} outside 1..65535")
     lib = _build.library()
     smem = lib.rsp_doppler_rdm_smem_bytes()
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"doppler_rdm: a block needs {smem} B of shared memory (> {SMEM_LIMIT})")
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(
+            f"doppler_rdm: a block needs {smem} B of shared memory (> {_build.SMEM_LIMIT})"
+        )
     out = torch.empty(batch_shape + (n_fft, nr), dtype=torch.float32, device=pc.device)
     ws = _workspace(w_re)
     stream = torch.cuda.current_stream(pc.device).cuda_stream

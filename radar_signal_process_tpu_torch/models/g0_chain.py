@@ -183,23 +183,29 @@ class G0Chain(nn.Module):
                                 self.dft_re, self.dft_im)
         return abs_short, abs_long
 
-    def pc(self, beams: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def pc(self, beams: torch.Tensor, segments=("short", "long")) -> tuple[torch.Tensor, ...]:
         """The FFT form of the pulse compression (the JAX ``_pc``): raw-tap FIR
-        on the short segment, 512-point matched filter on the long one."""
+        on the short segment, 512-point matched filter on the long one; the
+        compressed ``segments``, in that order."""
         ps = self.profile.segment_points[0]
-        spec = torch.as_tensor(fir_spectrum(ps, normalize=False), dtype=COMPLEX,
-                               device=beams.device)
-        short_mf = fir_compress(beams[..., :ps], spec, len(NARROW_PULSE_FIR_TAPS),
-                                post_scale=1.0, roll_group_delay=False)
-        long_mf = fixed_length_matched_filter(beams[..., ps:], self.match_spec)
-        return short_mf, long_mf
+        out = []
+        for segment in segments:
+            if segment == "short":
+                spec = torch.as_tensor(fir_spectrum(ps, normalize=False), dtype=COMPLEX,
+                                       device=beams.device)
+                out.append(fir_compress(beams[..., :ps], spec, len(NARROW_PULSE_FIR_TAPS),
+                                        post_scale=1.0, roll_group_delay=False))
+            else:
+                out.append(fixed_length_matched_filter(beams[..., ps:], self.match_spec))
+        return tuple(out)
 
-    def front_fft(self, beams: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def front_fft(self, beams: torch.Tensor, segments=("short", "long")) -> tuple[torch.Tensor, ...]:
         """B3's cuFFT form: :meth:`pc`, then the windowed, unshifted,
         zero-padded slow-time FFT and the magnitude (``ops.mtd``)."""
         window = self.mtd_window.double().cpu().numpy()
         n_fft = self.chain.mtd_fft_length
-        return tuple(doppler_process(mf, window, n_fft, shift=False) for mf in self.pc(beams))
+        return tuple(doppler_process(mf, window, n_fft, shift=False)
+                     for mf in self.pc(beams, segments))
 
     def process_frame(
         self, left, right, freq_index: int | None = None, beam_pos: int | None = None

@@ -473,6 +473,13 @@ B3_CASES = {
     "n_prt-4096-narrow": ((2,), 4096, 62, 62, 4096, False, (0, 504)),
     # odd column offset: the echo is not 16-byte aligned, 8-byte copies
     "x-8-byte": ((2,), 1536, 504, 512, 2048, False, (61, 1)),
+    # three beams side by side along phase 2's columns (32 tiles of 48)
+    "beams-3": ((3,), 1536, 504, 512, 2048, False, (62, 0)),
+    # n_prt no multiple of the 16-pulse stage (W by TMA, its last stage
+    # half past n_prt), beams whose columns share a tile
+    "n_prt-1000": ((2,), 1000, 62, 62, 1024, False, (0, 504)),
+    # one beam, the short segment's width: phase 2 in blocks of one warpgroup
+    "beams-1-narrow": ((1,), 1536, 62, 62, 2048, False, (0, 504)),
 }
 
 
@@ -501,6 +508,51 @@ def test_fused_pc_rdm_kernel_matches_plain(rng, cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_in,n_out", [(62, 62), (504, 512), (30, 17), (100, 300)],
+                         ids=["g0-short", "g0-long", "ragged", "wide"])
+def test_pc_operator_image_kernel_bit_equal(rng, cuda_device, n_in, n_out):
+    """B3's M image on the card: the image phase 1 reads, bit for bit that of
+    the plain version (padding included)."""
+    m_re = torch.from_numpy(rng.standard_normal((n_in, n_out)).astype(np.float32)).to(cuda_device)
+    m_im = torch.from_numpy(rng.standard_normal((n_in, n_out)).astype(np.float32)).to(cuda_device)
+    got = kpcr.pc_operator_image(m_re, m_im)
+    want = kpcr.pc_operator_image_plain(m_re, m_im)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_fused_pc_rdm_kernel_follows_operator_edits(rng, cuda_device):
+    """The kept M image is made again after an in-place edit of either PC
+    plane: the kernel then agrees with the plain version on the new M."""
+    echo, m_re, m_im, w_re, w_im = _b3_inputs(rng, cuda_device, *B3_CASES["ragged-out"])
+    for edit in (None, m_re, m_im):
+        if edit is not None:
+            edit.mul_(-0.5).add_(0.25)
+        got = kpcr.fused_pc_rdm(echo, m_re, m_im, w_re, w_im)
+        want = kpcr.fused_pc_rdm_plain(echo, m_re, m_im, w_re, w_im)
+        torch.testing.assert_close(got, want, rtol=RTOL,
+                                   atol=B3_PEAK_ATOL * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_fused_pc_rdm_kernel_sass_is_wgmma_and_tma(cuda_device):
+    """B3's kernels run their products as wgmma (HGMMA, no mma.sync HMMA) and
+    stage by the TMA engine: a bulk copy of B's image (UBLKCP) and a tensor
+    box of A (UTMALDG)."""
+    from radar_signal_process_tpu_torch.kernels import _build
+
+    _build.library()
+    funcs = _sass_functions(_build.library_path())
+    b3 = {name: body for name, body in funcs.items()
+          if "pc_kernel" in name or "rdm_kernel" in name and "doppler" not in name}
+    assert len(b3) == 3, sorted(funcs)   # pc_kernel, rdm_kernel<1>, rdm_kernel<2>
+    for name, body in b3.items():
+        assert "HGMMA" in body and "HMMA" not in body, name
+        assert "UBLKCP" in body and "UTMALDG" in body, name
+
+
+@pytest.mark.gpu
 def test_fused_pc_rdm_kernel_rejects_bad_inputs(rng, cuda_device):
     echo, m_re, m_im, w_re, w_im = _b3_inputs(rng, cuda_device, (2, 3), 16, 10, 7, 32, False,
                                               (0, 0))
@@ -519,9 +571,14 @@ def test_fused_pc_rdm_kernel_rejects_bad_inputs(rng, cuda_device):
         kpcr.fused_pc_rdm(echo[:0], m_re, m_im, w_re, w_im)
     with pytest.raises(ValueError, match="DFT planes"):
         kpcr.fused_pc_rdm(echo[..., :15, :], m_re, m_im, w_re, w_im)
+    # a 41000-pulse echo, which the earlier cluster design refused (its P
+    # slice outgrew shared memory), is taken: P goes through L2
     long_echo, *planes = _b3_inputs(rng, cuda_device, (1,), 41000, 4, 3, 16, False, (0, 0))
-    with pytest.raises(ValueError, match="shared memory"):
-        kpcr.fused_pc_rdm(long_echo, *planes)
+    before = kpcr.fused_pc_rdm.launches
+    got = kpcr.fused_pc_rdm(long_echo, *planes)
+    want = kpcr.fused_pc_rdm_plain(long_echo, *planes)
+    assert kpcr.fused_pc_rdm.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=B3_PEAK_ATOL * float(want.abs().max()))
 
 
 @pytest.mark.gpu

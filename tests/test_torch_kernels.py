@@ -350,14 +350,14 @@ def test_library_path_follows_header_edits(tmp_path, monkeypatch):
 
 
 # ------------------------------------------------- the 3xTF32 error model
-# B2 (csrc/rdm.cu, wgmma) and B3 (csrc/cgemm_3xtf32.cuh, mma.sync) run
-# their complex products on the tensor cores: each operand split as
-# hi = rna_tf32(a), lo = rna_tf32(a - hi), three TF32 products per real
-# product (lo.lo dropped), partial sums rounded into an FP32 accumulator.
-# B3's form is emulated by _cgemm_3xtf32 (the in-chain accumulation of a
-# `chunk` taken as exact, the partial then truncated toward zero), B2's by
-# _wgmma_3xtf32_rdm (truncated after every product): the pessimistic
-# readings of the tensor core's rounding.
+# B2 (csrc/rdm.cu) and B3 (csrc/pc_rdm.cu) run their complex products on
+# the tensor cores through wgmma: each operand split as hi = rna_tf32(a),
+# lo = rna_tf32(a - hi), three TF32 products per real product (lo.lo
+# dropped), partial sums restarted every 16 (B2) or 32 (B3) deep K and
+# rounded into an FP32 accumulator.  B2's form is emulated by _wgmma_3xtf32_rdm, B3's two
+# products by _wgmma_3xtf32_cgemm: each product's 8-term sum is added into
+# the partial with truncation toward zero, the pessimistic reading of the
+# tensor core's rounding.
 def _tf32_rna(x: np.ndarray) -> np.ndarray:
     """rna_tf32, the rounding of cvt.rna.tf32.f32: to nearest, ties away from
     zero, to 10 explicit mantissa bits (the low 13 bits of the float32 pattern
@@ -376,25 +376,6 @@ def _to_f32_toward_zero(x: np.ndarray) -> np.ndarray:
     over = np.abs(r.astype(np.float64)) > np.abs(x)
     r[over] = np.nextafter(r[over], np.float32(0))
     return r
-
-
-def _cgemm_3xtf32(a: np.ndarray, b: np.ndarray, chunk: int) -> np.ndarray:
-    """complex64 (m, k) @ (k, n) as the kernels form it: four real 3xTF32
-    products into separate re/im FP32 accumulators, flushed every `chunk`."""
-    ar, ai, br, bi = (_split_tf32(p) for p in (a.real, a.imag, b.real, b.imag))
-
-    def real_product(x, y, ks):
-        (xh, xl), (yh, yl) = x, y
-        mm = lambda u, v: u[:, ks].astype(np.float64) @ v[ks].astype(np.float64)  # noqa: E731
-        return mm(xh, yh) + mm(xh, yl) + mm(xl, yh)
-
-    re = np.zeros((a.shape[0], b.shape[1]), np.float32)
-    im = np.zeros_like(re)
-    for k0 in range(0, a.shape[1], chunk):
-        ks = slice(k0, k0 + chunk)
-        re += _to_f32_toward_zero(real_product(ar, br, ks) - real_product(ai, bi, ks))
-        im += _to_f32_toward_zero(real_product(ar, bi, ks) + real_product(ai, br, ks))
-    return (re + 1j * im).astype(np.complex64)
 
 
 def test_tf32_rna_rounds_to_nearest_ties_away():
@@ -557,11 +538,37 @@ def test_wgmma_b_planes_product_matches_plain(rng, shape, n_fft, shift, notch):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def _wgmma_3xtf32_cgemm(a: np.ndarray, b: np.ndarray, period: int = kpcr.PARTIAL_K) -> np.ndarray:
+    """complex64 (m, k) @ (k, n) as csrc/pc_rdm.cu forms each of its two
+    products: D = Ar [Br | Bi] + Ai [-Bi | Br] (re then im along N), A and B
+    split into TF32 hi/lo, six TF32 products per 8-deep step in the kernel's
+    order (lo.lo dropped), each product's 8-term sum added into the partial
+    with the tensor core's truncation (the pessimistic reading: every wgmma
+    truncates), the partial restarted every `period` and added into FP32
+    totals rounded to nearest.  Returns the totals as complex64."""
+    n = b.shape[1]
+    (arh, arl), (aih, ail) = _split_tf32(a.real), _split_tf32(a.imag)
+    (bh, bl), (bnh, bnl) = (_split_tf32(np.concatenate(p, axis=1).astype(np.float32))
+                            for p in ((b.real, b.imag), (-b.imag, b.real)))
+    terms = ((arl, bh), (arh, bl), (ail, bnh), (aih, bnl), (arh, bh), (aih, bnh))
+    acc = np.zeros((a.shape[0], 2 * n), np.float32)
+    for k0 in range(0, a.shape[1], period):
+        part = np.zeros_like(acc, dtype=np.float64)
+        for s in range(k0, min(k0 + period, a.shape[1]), 8):
+            ks = slice(s, s + 8)
+            for xa, y in terms:
+                prod = xa[:, ks].astype(np.float64) @ y[ks].astype(np.float64)
+                part = _to_f32_toward_zero(part + prod).astype(np.float64)
+        acc += part.astype(np.float32)
+    return (acc[:, :n] + 1j * acc[:, n:]).astype(np.complex64)
+
+
 @pytest.mark.parametrize("target", [False, True], ids=["noise", "target-1e5"])
 def test_3xtf32_error_model_b3(rng, target):
     """B3 at a G0-like 1536-pulse, 16-column tile: P = X M then W P, both in
-    3xTF32 with 16-term partials (pc_rdm.cu flushes every two 8-deep steps),
-    P rounded to float32 between them as it is held in shared memory."""
+    pc_rdm.cu's wgmma form with 32-deep partials (two ring stages, the
+    longest a partial runs), P rounded to float32 between them as phase 1
+    writes it."""
     x = _c64(rng, (1536, 62))
     if target:
         x = _with_target(x, 20, 0.2503)                      # peaks in a kept row, 1152
@@ -570,13 +577,102 @@ def test_3xtf32_error_model_b3(rng, target):
     w = (w_re + 1j * w_im).astype(np.complex64)[::8]             # 192 of the 1536 Doppler rows
     c128 = np.complex128
     exact = np.abs(w.astype(c128) @ (x.astype(c128) @ m.astype(c128)))
-    got = np.abs(_cgemm_3xtf32(w, _cgemm_3xtf32(x, m, chunk=16), chunk=16))
+    got = np.abs(_wgmma_3xtf32_cgemm(w, _wgmma_3xtf32_cgemm(x, m)).astype(c128))
     f32 = np.abs(w @ (x @ m))
     peak = exact.max()
     err, f32_err = np.abs(got - exact).max(), np.abs(f32 - exact).max()
     assert err <= 1e-5 * peak                                    # the complex128 bound
     assert (np.abs(got - f32) <= 2e-5 * peak + RTOL * f32).all()  # the B3 card tolerance
     assert err <= _3XTF32_OVER_F32 * f32_err
+
+
+# B3's operator image: (n_in, n_out) of the card's B3 cases
+IMAGE_SHAPES = {"g0-short": (62, 62), "g0-long": (504, 512), "ragged": (30, 17),
+                "wide": (70, 300), "tiny": (4, 3)}
+
+
+def _image_planes(img: torch.Tensor, n_rows: int, n_k: int) -> np.ndarray:
+    """An image, de-tiled: (part, sub, rows, K) cropped to (n_rows, n_k)."""
+    t, s = img.shape[:2]
+    p = img.permute(2, 3, 0, 4, 6, 1, 5, 7).reshape(2, 3, t * kpcr.TILE_COLS, s * kpcr.STAGE_K)
+    return p[:, :, :n_rows, :n_k].numpy()
+
+
+@pytest.mark.parametrize("case", list(IMAGE_SHAPES))
+def test_pc_operator_image_recomposes_m(rng, case):
+    """M's image, de-tiled: each sub-plane is bit for bit the rna split of
+    -Mi, Mr, Mi over M^T's rows, zero in the padding of rows and samples, and
+    hi + lo recomposes M to within 2^-22 of each value."""
+    n_in, n_out = IMAGE_SHAPES[case]
+    m_re = rng.standard_normal((n_in, n_out)).astype(np.float32)
+    m_im = rng.standard_normal((n_in, n_out)).astype(np.float32)
+    img = kpcr.pc_operator_image(torch.from_numpy(m_re), torch.from_numpy(m_im))
+    tiles, stages = -(-n_out // kpcr.TILE_COLS), -(-n_in // kpcr.STAGE_K)
+    assert tuple(img.shape) == (tiles, stages, 2, 3, kpcr.TILE_COLS // 8, kpcr.STAGE_K // 4, 8, 4)
+    assert img.numel() == tiles * stages * kpcr.IMAGE_STAGE_FLOATS
+    full = _image_planes(img, tiles * kpcr.TILE_COLS, stages * kpcr.STAGE_K)
+    assert not full[:, :, n_out:].any() and not full[:, :, :, n_in:].any()
+    got = full[:, :, :n_out, :n_in]
+    for sub, b in enumerate((-m_im.T, m_re.T, m_im.T)):
+        hi, lo = got[0, sub], got[1, sub]
+        want_hi, want_lo = _split_tf32(np.ascontiguousarray(b))
+        np.testing.assert_array_equal(hi.view(np.uint32), want_hi.view(np.uint32))
+        np.testing.assert_array_equal(lo.view(np.uint32), want_lo.view(np.uint32))
+        assert (np.abs(b - hi - lo) <= np.abs(b) * 2.0**-22).all()
+
+
+@pytest.mark.parametrize("batch,n_prt,n_in,n_out,n_fft", [(2, 64, 30, 62, 96), (3, 37, 20, 17, 64)],
+                         ids=["beams-2", "beams-3-ragged"])
+def test_b3_images_product_matches_plain(rng, batch, n_prt, n_in, n_out, n_fft):
+    """The data flow of csrc/pc_rdm.cu in float64 through its images: phase 1
+    contracts X with M's image (B = [Mr; Mi], B' = [-Mi; Mr] as the overlap
+    of its sub-planes), P's columns of all beams side by side become P's
+    image, phase 2 contracts W with it; |D| reproduces fused_pc_rdm_plain."""
+    x = _c64(rng, (batch, n_prt, n_in))
+    m_re, m_im = (rng.standard_normal((n_in, n_out)).astype(np.float32) for _ in range(2))
+    w_re, w_im = _planes(make_window("hamming", n_prt), n_fft, False)
+
+    def product(a: np.ndarray, img: torch.Tensor, n_rows: int, n_k: int) -> np.ndarray:
+        sub = _image_planes(img, n_rows, n_k).astype(np.float64).sum(axis=0)  # hi + lo
+        b, bn = np.concatenate([sub[1], sub[2]]), np.concatenate([sub[0], sub[1]])
+        d = a.real.astype(np.float64) @ b.T + a.imag.astype(np.float64) @ bn.T
+        return d[:, :n_rows] + 1j * d[:, n_rows:]
+
+    m_img = kpcr.pc_operator_image(torch.from_numpy(m_re), torch.from_numpy(m_im))
+    p = product(x.reshape(-1, n_in), m_img, n_out, n_in).astype(np.complex64)
+    cols = p.reshape(batch, n_prt, n_out).transpose(0, 2, 1).reshape(batch * n_out, n_prt)
+    p_img = kpcr.wgmma_b_image_plain(torch.from_numpy(cols.real.copy()),
+                                     torch.from_numpy(cols.imag.copy()))
+    w = (w_re.numpy() + 1j * w_im.numpy()).astype(np.complex64)
+    d = np.abs(product(w, p_img, batch * n_out, n_prt))
+    got = d.reshape(n_fft, batch, n_out).transpose(1, 0, 2)
+    want = kpcr.fused_pc_rdm_plain(torch.from_numpy(x), torch.from_numpy(m_re),
+                                   torch.from_numpy(m_im), w_re, w_im).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-5 * want.max())
+
+
+def test_prepared_operator_image_follows_in_place_edits(monkeypatch):
+    """fused_pc_rdm's kept M image: made once for a pair of planes, made
+    again after an in-place edit of either plane, and made for other planes
+    (the split stubbed by a counter)."""
+    calls = []
+    monkeypatch.setattr(kpcr, "pc_operator_image",
+                        lambda m_re, m_im: calls.append(1) or torch.full((1,), float(len(calls))))
+    monkeypatch.setattr(kpcr, "_images", type(kpcr._images)())
+    m_re, m_im = torch.ones(6, 5), torch.zeros(6, 5)
+    first = kpcr.prepared_operator_image(m_re, m_im)
+    assert kpcr.prepared_operator_image(m_re, m_im) is first and len(calls) == 1
+    m_re.add_(1.0)
+    assert float(kpcr.prepared_operator_image(m_re, m_im)) == 2.0 and len(calls) == 2
+    m_im[2, 3] = 4.0
+    assert float(kpcr.prepared_operator_image(m_re, m_im)) == 3.0 and len(calls) == 3
+    assert kpcr.prepared_operator_image(m_re, m_im) is not first and len(calls) == 3
+    other = m_re.clone()
+    kpcr.prepared_operator_image(other, m_im)
+    assert len(calls) == 4
+    for i in range(kpcr._IMAGE_CACHE):   # the oldest entries make way
+        kpcr.prepared_operator_image(torch.ones(2, 2), torch.ones(2, 2))
+    assert len(kpcr._images) == kpcr._IMAGE_CACHE
 
 
 def test_wrappers_reject_unsupported_devices(rng):
