@@ -48,8 +48,9 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    cuFFT form's call time, the bound and the share of it, and the device
    time of the operator's image (made once an operator);
 7. B1 (G0) — the CFAR kernel bit for bit against its plain version at G0
-   geometry (2048 x 62 and 2048 x 512, one segment, n_clutter 6), on B3's
-   summed, notched output and on crafted RDMs; timed per segment as in 4;
+   geometry (2048 x 62, the narrow body, and 2048 x 512, the tile body; one
+   segment, n_clutter 6), on B3's summed, notched output and on crafted
+   RDMs; timed per segment as in 4 (device time beside the byte floor);
 8. G0      — writes a seeded 4-frame G1 capture (the known-good target,
    per-frame frequency indices 5, 2, 9, 5) and runs
    ``radar_signal_process_tpu_torch.cli dmx`` over it at full G0 width;
@@ -95,8 +96,9 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    flags equal to B1's plain version (``segmented_cfar``) on them, the
    target in every slice; one window's device time, sharded and unsharded;
    B1 on the halo-extended blocks of sp = 2 and 4 shards of a full-G2
-   window, stitched, bit for bit against the plain version and B1 on the
-   whole RDM, both timed; and
+   window as the sharded CFAR runs it (the re-notch fused), stitched, bit
+   for bit against the plain version and B1 on the whole RDM, both timed,
+   the blocks' device time beside their byte floor; and
    ``cli e2e --mesh 1x1`` over the e2e capture, its rows those of ``cli
    e2e`` for the slice and the profile's 13 beams, bit for bit.  NCCL takes one GPU per rank, so no
    group of more than one rank runs on one card;
@@ -995,17 +997,19 @@ def phase_mesh(dev, cap: str, coeff_path: str, beam: int, row: int, col: int,
     stream's, its flags equal to B1's plain version (``segmented_cfar``) on
     the returned RDM, the target in every slice; the device time of a
     window, sharded and unsharded; then B1 on the halo-extended blocks of sp
-    = 2 and 4 shards, stitched, against the plain version and B1 on the
-    whole RDM."""
+    = 2 and 4 shards (:func:`mesh_b1_blocks`)."""
     import torch.distributed as dist
 
     from radar_signal_process_tpu_torch import cli
     from radar_signal_process_tpu_torch.config import G2_PROFILE as prof
     from radar_signal_process_tpu_torch.kernels import cfar as kcfar
     from radar_signal_process_tpu_torch.kernels import rdm as krdm
-    from radar_signal_process_tpu_torch.models.detect import clutter_cells, renotch_mask
+    from radar_signal_process_tpu_torch.models.detect import (
+        clutter_cells,
+        renotch_mask,
+        renotch_rows,
+    )
     from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
-    from radar_signal_process_tpu_torch.parallel.sharding import extended_block_cfar
 
     n_clutter = clutter_cells(prof, G2_PULSES)
     keep = torch.from_numpy(renotch_mask(prof, G2_PULSES, n_clutter, 20)).to(dev)
@@ -1071,10 +1075,28 @@ def phase_mesh(dev, cap: str, coeff_path: str, beam: int, row: int, col: int,
 
     # B1 on the halo-extended blocks of sp shards, stitched, against the
     # plain version and B1 on the whole RDM
-    rdm = (rdm_ms.pop("rdm") * keep[:, None]).reshape(-1, G2_PULSES, G2_RANGE).contiguous()
+    route = mesh_b1_blocks(rdm_ms.pop("rdm").reshape(-1, G2_PULSES, G2_RANGE).contiguous(),
+                           keep, renotch_rows(prof, G2_PULSES, n_clutter, 20), cfg, segments,
+                           n_clutter)
+    return {"launches": launches, "window_ms": rdm_ms, "b1_blocks": route}
+
+
+def mesh_b1_blocks(raw: torch.Tensor, keep: torch.Tensor, zero: tuple, cfg, segments,
+                   n_clutter: int) -> dict:
+    """B1 on the halo-extended blocks of sp = 2 and 4 range shards of the G2
+    window ``raw`` (before the CFAR stage's re-notch), in the form the
+    sharded CFAR runs (``extended_block_cfar`` with the re-notch rows
+    ``zero`` read as 0.0), centres stitched, bit for bit against the plain
+    version on ``raw * keep`` and B1 on the whole window; its device time a
+    window beside the byte floor of its blocks."""
+    from radar_signal_process_tpu_torch.kernels import cfar as kcfar
+    from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar
+    from radar_signal_process_tpu_torch.parallel.sharding import extended_block_cfar
+
+    rdm = raw * keep[:, None]
     h = cfg.ref_cells + cfg.guard_cells + 2 * cfg.range_extend_cells
     plain_f, plain_v = segmented_cfar(rdm, segments, cfg, n_clutter)
-    whole_f, whole_v = kcfar.cascaded_cfar2d(rdm, cfg, n_clutter, segments)
+    whole_f, whole_v = kcfar.cascaded_cfar2d(raw, cfg, n_clutter, segments, zero_rows=zero)
     if not (torch.equal(whole_f, plain_f) and torch.equal(whole_v, plain_v)):
         fail("mesh: B1 on the whole G2 window differs from its plain version")
     route = {}
@@ -1084,29 +1106,38 @@ def phase_mesh(dev, cap: str, coeff_path: str, beam: int, row: int, col: int,
         # so TMA stages it
         local = G2_RANGE // sp
         w = local + 2 * h + -(local + 2 * h) % 4
-        ext = torch.cat([rdm[..., -h:], rdm, rdm[..., : w - local - h]], dim=-1)
+        ext = torch.cat([raw[..., -h:], raw, raw[..., : w - local - h]], dim=-1)
         blocks = [(s * local, ext[..., s * local : s * local + w].contiguous())
                   for s in range(sp)]
-        parts = [extended_block_cfar(blk, cfg, n_clutter, G2_RANGE, segments, c0, local, h)
-                 for c0, blk in blocks]
+
+        def run(blocks=blocks, local=local):
+            return [extended_block_cfar(blk, cfg, n_clutter, G2_RANGE, segments, c0, local, h,
+                                        zero_rows=zero)
+                    for c0, blk in blocks]
+
+        parts = run()
         got_f, got_v = torch.cat([f for f, _ in parts], -1), torch.cat([v for _, v in parts], -1)
         n_diff = int((got_f != plain_f).sum() + (got_v != plain_v).sum()
                      + (got_f != whole_f).sum() + (got_v != whole_v).sum())
-        ms = cuda_ms({"blocks": lambda blocks=blocks, local=local: [
-                          extended_block_cfar(blk, cfg, n_clutter, G2_RANGE, segments, c0,
-                                              local, h)
-                          for c0, blk in blocks],
-                      "whole": lambda: kcfar.cascaded_cfar2d(rdm, cfg, n_clutter, segments)})
+        ms = cuda_ms({"blocks": run, "whole": lambda: kcfar.cascaded_cfar2d(
+            raw, cfg, n_clutter, segments, zero_rows=zero)})
+        dev_ms = graph_ms(run)
+        bound = sum(cost_model.cascaded_cfar_cost(
+            blk.shape[0], G2_PULSES, blk.shape[-1], n_clutter, cfg,
+            notched_rows=zero[1] - zero[0])["sol_s"] for _, blk in blocks) * 1e3
         route[sp] = {"mismatched_flags": n_diff, "blocks_ms": ms["blocks"],
-                     "whole_ms": ms["whole"], "block_shape": list(blocks[0][1].shape)}
+                     "whole_ms": ms["whole"], "device_ms": dev_ms, "bound_ms": bound,
+                     "block_shape": list(blocks[0][1].shape)}
         print(f"mesh: B1 on the {sp} halo-extended blocks {tuple(blocks[0][1].shape)} of a "
-              f"full-G2 window (shards cut the segments), centres stitched vs the plain CFAR "
-              f"and B1 on the whole {tuple(rdm.shape)}: {n_diff} flags differ -> "
-              f"{'bit-identical' if n_diff == 0 else 'MISMATCH'}; median ms (CUDA events) "
-              f"{sp} block calls {ms['blocks']:.4f}, whole {ms['whole']:.4f} | {SMI['line']}")
+              f"full-G2 window (shards cut the segments, re-notch rows {zero} fused), centres "
+              f"stitched vs the plain CFAR and B1 on the whole {tuple(raw.shape)}: {n_diff} "
+              f"flags differ -> {'bit-identical' if n_diff == 0 else 'MISMATCH'}; median ms "
+              f"(CUDA events) {sp} block calls {ms['blocks']:.4f}, whole {ms['whole']:.4f}; "
+              f"device {dev_ms:.4f} ms a window (CUDA graph of 20), byte floor {bound:.4f} ms "
+              f"= {100 * bound / dev_ms:.1f}% | {SMI['line']}")
         if n_diff:
             fail(f"mesh: B1 on sp={sp} extended blocks differs from the whole RDM's flags")
-    return {"launches": launches, "window_ms": rdm_ms, "b1_blocks": route}
+    return route
 
 
 def _mesh_times(dev, prof, n_clutter: int, frames: tuple) -> dict:
@@ -1267,7 +1298,7 @@ def phase_pc_rdm(dev, chain) -> tuple[dict, tuple[torch.Tensor, torch.Tensor]]:
 
 
 def phase_cfar_g0(dev, chain, abs_rdms) -> dict:
-    from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
+    from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d, cfar_plan
     from radar_signal_process_tpu_torch.ops.cfar import cascaded_cfar2d as plain_cfar
     from radar_signal_process_tpu_torch.ops.mtd import zero_velocity_notch_unshifted
 
@@ -1294,6 +1325,12 @@ def phase_cfar_g0(dev, chain, abs_rdms) -> dict:
               f"{'bit-identical' if n_diff == 0 else 'MISMATCH'}")
     if mismatched:
         fail(f"B1 at G0: {mismatched} kernel flags differ from the plain version")
+    for name, x in zip(("short", "long"), sums):
+        plan = cfar_plan(((0, x.shape[-1]),), x.shape[-2] - 2 * n_clutter - 1, 1, cfg)
+        print(f"B1 G0 {name} plan: "
+              f"{'the narrow body' if plan.narrow else f'tiles of {plan.sw} columns'}, bands of "
+              f"{plan.band_rows} rows, {plan.n_blocks} blocks of {plan.threads} threads, "
+              f"staging by {'TMA' if plan.tma else 'cp.async'}")
     by_seg = {name: b1_report(f"G0 {name}", x, cfg, n_clutter,
                               lambda x=x: cascaded_cfar2d(x, cfg, n_clutter),
                               lambda x=x: plain_cfar(x, cfg, n_clutter))

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "rsp_cascaded_cfar": (_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I, _I, _I, _I,
                           _I, _F, _I, _I, _I, _I, _I, _P),
     "rsp_check_div5": (_P, _P),
-    "rsp_cascaded_cfar_smem_bytes": (_I, _I, _I),
+    "rsp_cascaded_cfar_smem_bytes": (_I, _I, _I, _I),
     "rsp_fused_pc_rdm": (_P, _L, _I, _P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P),
     "rsp_fused_pc_rdm_split_m": (_P, _P, _P, _L, _I, _I, _P),

@@ -12,10 +12,13 @@ f32 rows, write two byte-wide flag maps, ~0.31 GB per G2 window): a block
 streams a strip of columns down a band of rows, four columns a thread, its
 rows brought into shared memory by TMA (or by cp.async where the row stride
 is not a multiple of 16 bytes), forms each window mean once, and stores each
-row's flags as it goes.  ``zero_rows`` fuses the CFAR stage's re-notch into
-the load: those rows read as 0.0 and are not fetched.  :func:`cfar_plan`
-(plain Python, so the CPU tests reach it) cuts the RDM into strips and
-bands.  On a CPU tensor the wrapper runs the plain ``ops.cfar`` version.
+row's flags as it goes.  An RDM no wider than ``NARROW_TX`` columns (G0's
+62-column short segment) takes the kernel's narrow body instead, a thread a
+column.  ``zero_rows`` fuses the CFAR stage's re-notch into the load: those
+rows read as 0.0 and are not fetched.  :func:`cfar_plan` (plain Python, so
+the CPU tests reach it) picks the body, cuts the RDM into strips and bands
+and prices them with :func:`plan_cost`.  On a CPU tensor the wrapper runs
+the plain ``ops.cfar`` version.
 """
 
 from __future__ import annotations
@@ -36,25 +39,35 @@ PREFETCH, ROWS = 4, 4    # rows staged ahead, rows a step (csrc/cfar.cu kPrefetc
 H100_SMS = 132
 STRIPS = (128, 256, 512, 1024)  # staged tile widths csrc/cfar.cu is built for
 COLS = 4                 # neighbouring columns a thread (csrc/cfar.cu kCols)
-# the band model of cfar_plan: a row step of a block takes STEP_LATENCY
-# cycles plus STEP_ISSUE for each warp resident on its SM; a step that only
-# fills the pipeline costs FILL_SHARE of one that decides cells.  Set so the
-# model picks the tile width and band length tools/bench_b1.py --plans timed
-# fastest on an H100 at G2, the main path (tiles of 256, bands of 101), and
-# at G0's 512 columns (bands of 13).  At G0's 62 columns it picks bands of 5,
-# 9% slower there than bands of 4: the model counts a band's rows, not its
-# whole 4-row steps, and counting steps moves G2 off its fastest band.
-STEP_LATENCY, STEP_ISSUE, FILL_SHARE = 200, 32, 0.7
+# the narrow body's output columns a strip and rows in flight (csrc/cfar.cu
+# kNarrowTx, kNarrowPrefetch)
+NARROW_TX, NARROW_PREFETCH = 64, 8
+# The band model of cfar_plan (plan_cost): a block's row steps of ROWS rows
+# take one time each, the steps that only fill the velocity pipeline
+# FILL_SHARE of it, whatever the warps resident on the SM (up to the ten a
+# G2 launch keeps there); the blocks run in whole waves of the SMs'
+# resident slots.  Set so the model picks, at G2, the sweep's batch, the
+# mesh's halo-extended blocks and G0's 512 columns, the fastest of the
+# variants tools/bench_b1.py --plans times there on an NVIDIA H100 80GB
+# HBM3 at 700 W: tiles of 256 and bands of 101 at G2 and on the mesh blocks
+# (two whole waves at sp = 2, one at sp = 4), bands of 31 for the sweep's
+# batch (one wave), tiles of 128 and bands of 12 at G0 (tiles of 256 tie
+# there, 2% faster).
+FILL_SHARE = 0.7
 
 
 class CfarPlan(NamedTuple):
-    """Block map of one launch.  Each strip of ``tx`` output columns stages
-    ``sw = tx + 2 * halo`` columns a row, ``COLS`` a thread (``threads``); a
-    block walks a band of ``band_rows`` cropped rows of one RDM down one
-    strip, ``blockIdx.x = strip * n_bands + band`` and ``grid.y`` the batch.
-    ``table`` holds one ``(col0, ns)`` per segment.  ``tma`` says how rows
-    are staged: by TMA, or by cp.async where the row stride is not a
-    multiple of 16 bytes."""
+    """Block map of one launch.  The tile body: each strip of ``tx`` output
+    columns stages ``sw = tx + 2 * halo`` columns a row, ``COLS`` a thread
+    (``threads``); a block walks a band of ``band_rows`` cropped rows of one
+    RDM down one strip, ``blockIdx.x = strip * n_bands + band`` and
+    ``grid.y`` the batch.  The narrow body (``narrow``): strips of up to
+    ``tx = NARROW_TX`` columns are cut from each segment, their halo
+    (``2e + r + g`` columns a side) wrapped inside it, a thread a staged
+    column, and a segment's blocks follow the last segment's.  ``table``
+    holds one ``(col0, ns)`` per segment.  ``tma`` says how rows are staged:
+    by TMA, or by cp.async where the row stride is not a multiple of 16
+    bytes (and always in the narrow body)."""
 
     sw: int
     tx: int
@@ -67,6 +80,7 @@ class CfarPlan(NamedTuple):
     n_blocks: int
     smem: int
     tma: bool
+    narrow: bool
 
 
 def halo_columns(cfg: CFARConfig) -> int:
@@ -83,64 +97,108 @@ def smem_bytes(sw: int, r: int, g: int) -> int:
     return 4 * (data + means) * sw + 2 * ROWS * sw + 8 * (data // ROWS)
 
 
+def narrow_threads(r: int, g: int, e: int) -> int:
+    """Threads of a narrow block: a staged column each, in whole warps."""
+    return -(-(NARROW_TX + 2 * (2 * e + r + g)) // 32) * 32
+
+
+def narrow_smem_bytes(r: int, g: int, e: int) -> int:
+    """Shared-memory bytes of a narrow block (``csrc/cfar.cu``: the ring of
+    staged rows, the ring of velocity means, a step's cascade marks)."""
+    return (4 * ((NARROW_PREFETCH + ROWS + g + r) * (NARROW_TX + 2 * (2 * e + r + g))
+                 + (2 * g + r + 1 + ROWS) * (NARROW_TX + 2 * e)) + ROWS * NARROW_TX)
+
+
+def plan_for(
+    segments: Sequence[Tuple[int, int]], nvu: int, cfg: CFARConfig, sw: int, band_rows: int,
+    tma: bool = True,
+) -> CfarPlan:
+    """The block map of tiles ``sw`` columns wide (0: the narrow body) and
+    bands of ``band_rows`` rows; ``tma`` where the layout allows it."""
+    nr = segments[-1][1]
+    r, g, e = cfg.ref_cells, cfg.guard_cells, cfg.range_extend_cells
+    table = tuple((a, b - a) for a, b in segments)
+    n_bands = -(-nvu // band_rows)
+    if sw == 0:
+        halo = 2 * e + r + g
+        n_strips = sum(-(-ns // NARROW_TX) for _, ns in table)
+        return CfarPlan(NARROW_TX + 2 * halo, NARROW_TX, halo, band_rows, narrow_threads(r, g, e),
+                        table, n_strips, n_bands, n_strips * n_bands, narrow_smem_bytes(r, g, e),
+                        False, True)
+    halo = halo_columns(cfg)
+    n_strips = -(-nr // (sw - 2 * halo))
+    return CfarPlan(sw, sw - 2 * halo, halo, band_rows, sw // COLS, table, n_strips, n_bands,
+                    n_strips * n_bands, smem_bytes(sw, r, g), tma, False)
+
+
 def cfar_plan(
     segments: Sequence[Tuple[int, int]], nvu: int, batch: int, cfg: CFARConfig,
     n_sms: int = H100_SMS, aligned: bool = True,
 ) -> CfarPlan:
     """The block map for ``segments`` (tiling ``[0, nr)``) over ``nvu``
-    cropped rows.
+    cropped rows, from the shape alone.
 
-    Rows are staged by TMA when the row stride is a multiple of 16 bytes
-    (``nr % 4 == 0``) and ``aligned`` (the RDM starts on a 16-byte
-    boundary), else by cp.async.  The tile width and the band length
-    minimise the modelled time: the row steps of all blocks over the SMs'
-    resident blocks, at cycles a step that grow with the warps resident,
-    plus the last block's steps alone.  Each band restarts the velocity
-    pipeline, which costs 2(g+r) row steps.
+    An RDM no wider than ``NARROW_TX`` columns takes the narrow body (G0's
+    62-column short segment); any other the tile body, its rows staged by
+    TMA when the row stride is a multiple of 16 bytes (``nr % 4 == 0``) and
+    ``aligned`` (the RDM starts on a 16-byte boundary), else by cp.async.
+    The tile width and the band length minimise :func:`plan_cost`.
     """
     if not 1 <= len(segments) <= MAX_SEGMENTS:
         raise ValueError(f"{len(segments)} segments outside 1..{MAX_SEGMENTS}")
     nr = segments[-1][1]
     r, g, e = cfg.ref_cells, cfg.guard_cells, cfg.range_extend_cells
     halo = halo_columns(cfg)
-    fill = FILL_SHARE * 2 * (g + r)
-    best = None
-    for sw in STRIPS:
-        tx, threads, smem = sw - 2 * halo, sw // COLS, smem_bytes(sw, r, g)
-        if tx < 4 or smem > SMEM_LIMIT or threads > 1024:
-            continue
-        n_strips = -(-nr // tx)
-        warps = -(-threads // 32)
-        per_sm = max(1, min(2048 // threads, 32, 233472 // (smem + 1024)))
-        for band_rows in sorted({-(-nvu // n) for n in range(1, nvu + 1)}, reverse=True):
-            blocks = batch * n_strips * -(-nvu // band_rows)
-            resident = min(per_sm, -(-blocks // n_sms))
-            steps = band_rows + fill
-            cost = (blocks * steps / (n_sms * resident)
-                    * (STEP_LATENCY + resident * warps * STEP_ISSUE)
-                    + steps * (STEP_LATENCY + warps * STEP_ISSUE))
-            if best is None or cost < best[0]:
-                best = (cost, sw, band_rows)
-    if best is None:
+    tma = aligned and nr % 4 == 0
+    if (nr <= NARROW_TX and narrow_threads(r, g, e) <= 1024
+            and narrow_smem_bytes(r, g, e) <= SMEM_LIMIT):
+        tiles = (0,)
+    else:
+        tiles = tuple(sw for sw in STRIPS if sw - 2 * halo >= 4 and sw // COLS <= 1024
+                      and smem_bytes(sw, r, g) <= SMEM_LIMIT)
+    if not tiles:
         raise ValueError(
             f"CFAR windows {cfg} need a halo of {halo} columns a side: no tile of "
             f"{STRIPS[-1]} columns ({STRIPS[-1] // COLS} threads) fits {SMEM_LIMIT} B of "
             f"shared memory with room for output columns"
         )
-    _, sw, band_rows = best
-    tx = sw - 2 * halo
-    n_strips, n_bands = -(-nr // tx), -(-nvu // band_rows)
-    return CfarPlan(sw, tx, halo, band_rows, sw // COLS,
-                    tuple((a, b - a) for a, b in segments), n_strips, n_bands,
-                    n_strips * n_bands, smem_bytes(sw, r, g), aligned and nr % 4 == 0)
+    bands = sorted({-(-nvu // n) for n in range(1, nvu + 1)}, reverse=True)
+    plans = (plan_for(segments, nvu, cfg, sw, band_rows, tma)
+             for sw in tiles for band_rows in bands)
+    return min(plans, key=lambda plan: plan_cost(plan, batch, cfg, n_sms))
 
 
-def plan_tile(plan: CfarPlan, block: int) -> Tuple[int, int, int]:
-    """``(x0, y_begin, y_end)`` of ``blockIdx.x == block``, decoded as the
-    kernel decodes it: the block decides cropped rows ``[y_begin, y_end)``
-    of RDM columns ``[x0, x0 + tx)``."""
+def plan_cost(plan: CfarPlan, batch: int, cfg: CFARConfig, n_sms: int = H100_SMS) -> float:
+    """The band model's time of one launch, in row steps of one block.
+
+    A block walks ``ceil((band_rows + 2(g+r)) / ROWS)`` steps, the first
+    ``2(g+r) // ROWS`` of them only filling the velocity pipeline
+    (FILL_SHARE of a step each), and the blocks run in whole waves of the
+    SMs' resident slots: a wave that is not full takes as long as a full
+    one.
+    """
+    lag = cfg.guard_cells + cfg.ref_cells
+    per_sm = max(1, min(2048 // plan.threads, 32, 233472 // (plan.smem + 1024)))
+    waves = -(-batch * plan.n_blocks // (n_sms * per_sm))
+    steps = -(-(plan.band_rows + 2 * lag) // ROWS) - (1 - FILL_SHARE) * (2 * lag // ROWS)
+    return waves * steps
+
+
+def plan_tile(plan: CfarPlan, block: int) -> Tuple[int, int, int, int]:
+    """``(x_begin, x_end, y_begin, y_end)`` of ``blockIdx.x == block``,
+    decoded as the kernel decodes it: the block decides cropped rows
+    ``[y_begin, y_end)`` of RDM columns ``[x_begin, x_end)``."""
+    nr = plan.table[-1][0] + plan.table[-1][1]
+    x_lo, x_hi = 0, nr
+    if plan.narrow:
+        for x_lo, ns in plan.table:
+            x_hi = x_lo + ns
+            if block < -(-ns // plan.tx) * plan.n_bands:
+                break
+            block -= -(-ns // plan.tx) * plan.n_bands
     strip, band = divmod(block, plan.n_bands)
-    return strip * plan.tx, band * plan.band_rows, (band + 1) * plan.band_rows
+    x0 = x_lo + strip * plan.tx
+    return x0, min(x0 + plan.tx, x_hi), band * plan.band_rows, (band + 1) * plan.band_rows
 
 
 def plan_key(
@@ -193,7 +251,8 @@ def _launch_table(segments, nvu: int, batch: int, r: int, g: int, e: int, method
     plan = cfar_plan(segments, nvu, batch,
                      CFARConfig(ref_cells=r, guard_cells=g, range_extend_cells=e,
                                 method=method), n_sms, aligned)
-    if _build.library().rsp_cascaded_cfar_smem_bytes(plan.sw, r, g) != plan.smem:
+    if _build.library().rsp_cascaded_cfar_smem_bytes(0 if plan.narrow else plan.sw, r, g,
+                                                      e) != plan.smem:
         raise RuntimeError("cascaded_cfar2d: csrc/cfar.cu and smem_bytes disagree")
     table = (ctypes.c_int * (2 * len(plan.table)))(
         *(c for c, _ in plan.table), *(c + w for c, w in plan.table))
@@ -288,8 +347,9 @@ def cascaded_cfar2d(
     stream = torch.cuda.current_stream(rdm.device).cuda_stream
     rc = _build.library().rsp_cascaded_cfar(
         ptr, out.data_ptr(), out.data_ptr() + rdm.numel(), batch, nv, nr, lo, nvu,
-        len(plan.table), table, plan.sw, plan.band_rows, cfg.ref_cells, cfg.guard_cells,
-        cfg.method, float(cfg.threshold), cfg.range_extend_cells, int(cfg.range_detect),
+        len(plan.table), table, 0 if plan.narrow else plan.sw, plan.band_rows,
+        cfg.ref_cells, cfg.guard_cells, cfg.method, float(cfg.threshold),
+        cfg.range_extend_cells, int(cfg.range_detect),
         za, zb, int(plan.tma), stream,
     )
     _build.check(rc, "rsp_cascaded_cfar")

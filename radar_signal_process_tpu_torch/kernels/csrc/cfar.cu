@@ -37,16 +37,21 @@
 // stopped at 0.38 ms; this one spends its instructions on the CFAR
 // arithmetic:
 //
-//  * one launch per call; a block owns a strip of TX output columns of one
-//    RDM (blockIdx.y) and walks a band of rows down it.  Strips are cut from
-//    the RDM's columns, not from its segments, so every thread's four
-//    columns start on a 16-byte boundary; a thread finds the segment of
-//    each of its columns once, when it starts;
+//  * one launch per call, of one of two bodies: the tile body below, or,
+//    for an RDM no wider than kNarrowTx columns, the narrow body
+//    (narrow_cfar_kernel, further down);
+//  * a block owns a strip of TX output columns of one RDM (blockIdx.y) and
+//    walks a band of rows down it.  Strips are cut from the RDM's columns,
+//    not from its segments, so every thread's four columns start on a
+//    16-byte boundary; a thread finds the segment of each of its columns
+//    once, when it starts.  kernels/cfar.py::cfar_plan sizes the tiles and
+//    the bands to whole waves of the card's resident blocks;
 //  * the staged tile is SW = TX + 2H columns (H = 2e+r+g rounded up to 4,
 //    the range halo), kCols = 4 neighbouring columns a thread, SW/4 threads;
 //  * staging by TMA (cp.async.bulk.tensor) into a ring of steps of kRows
 //    rows, each step completing on one mbarrier, kPrefetch rows ahead of
-//    the step in use (a deeper ring costs a block an SM): one box of the step's kRows rows where they are
+//    the step in use (a deeper ring costs a block an SM at G2 and gains
+//    nothing on G0's or the mesh's shapes): one box of the step's kRows rows where they are
 //    neighbours in the RDM, else (the wrap at a band's start or end, the
 //    edge of the re-notch band) a box a row, issued by the lanes of warp 0
 //    together.  A re-notched row or step is fetched as a box wholly outside
@@ -54,13 +59,13 @@
 //    The tensor maps (cuTensorMapEncodeTiled, from cudaGetDriverEntryPoint,
 //    so the library needs no -lcuda) are a __grid_constant__ argument;
 //  * shapes TMA cannot take (a row stride that is not a multiple of 16
-//    bytes, as G0's 62-column RDM, or an RDM that does not start on a
-//    16-byte boundary; parallel/sharding.py pads a range shard's
-//    halo-extended block to whole 16 bytes a row) take the other staging
-//    path of the same kernel: each thread copies its four columns by
-//    cp.async, zero-filling re-notched rows and columns outside the RDM,
-//    and arrives on the same mbarrier (cp.async.mbarrier.arrive.noinc).  kernels/cfar.py::cfar_plan picks
-//    the path by shape;
+//    bytes, or an RDM that does not start on a 16-byte boundary;
+//    parallel/sharding.py pads a range shard's halo-extended block to
+//    whole 16 bytes a row) take the other staging path of the same kernel:
+//    each thread copies its four columns by cp.async, zero-filling
+//    re-notched rows and columns outside the RDM, and arrives on the same
+//    mbarrier (cp.async.mbarrier.arrive.noinc).  kernels/cfar.py::cfar_plan
+//    picks the path by shape;
 //  * velocity: per row a thread reads its four columns with one 16-byte
 //    shared-memory load, slides four windows in registers (r-1 adds and a
 //    division by 5 each, div5: three FP32 operations, exact, no branch), and
@@ -84,12 +89,13 @@
 //    index and loop bound folds; other windows take a build with them at
 //    run time (and the IEEE division).
 // Measured (tools/bench_b1.py, NVIDIA H100 80GB HBM3 at a 700 W power
-// limit, G2 fused): 0.262 ms of device time, 35% of the byte floor, where
-// the earlier design took 0.380 on the re-notched RDM, and its re-notch product
-// and B1 0.578.  What its parts cost (--cuts, --plans): the IEEE division in
-// place of div5 +0.14 ms; cp.async staging in place of TMA +0.16; a box a
-// row in place of a box a step +0.012; 8 or 16 rows ahead in place of 4
-// +0.056 (a block fewer an SM); the flag stores 0.059; the range pass 0.037.
+// limit, G2 fused): 0.227-0.229 ms of device time, 40% of the byte floor,
+// where the earlier design took 0.375-0.379 on the re-notched RDM, and
+// its re-notch product and B1 0.572-0.576.  What its parts cost (--cuts,
+// --plans): the IEEE division in place of div5 +0.147 ms; cp.async staging
+// in place of TMA +0.109; a box a row in place of a box a step +0.021; 8
+// rows ahead in place of 4 +0.048 (a block fewer an SM); the flag stores
+// 0.045; the range pass 0.029.
 
 #include <cuda.h>  // CUtensorMap and the driver's enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
@@ -136,6 +142,7 @@ struct CfarArgs {
   int n_seg;
   int col0[kMaxSegments];
   int cend[kMaxSegments];
+  int first[kMaxSegments + 1];  // the narrow body's first block of each segment, and the total
 };
 
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -534,6 +541,219 @@ cascaded_cfar_kernel(const __grid_constant__ Maps maps,
   }
 }
 
+// ------------------------------------------------------------- narrow RDMs
+// An RDM no wider than kNarrowTx columns (G0's 62-column short segment, one
+// RDM of 2035 cropped rows a call) gives the tile body one warp a block and
+// a few blocks an SM, and the launch lasts a band's steps at their latency:
+// on that segment the tile body takes twice the narrow body's time
+// (tools/bench_b1.py --plans, NVIDIA H100 80GB HBM3 at 700 W: 0.015-0.016
+// ms with bands of 4 against 0.0073).
+// Such an RDM takes the earlier design's block map: a block walks a band of
+// rows down one segment's strip of up to kNarrowTx output columns and its
+// range halo (2e+r+g a side, wrapped inside the segment as it is staged), a
+// thread a staged column.  Each thread copies its column's rows by cp.async
+// kNarrowPrefetch rows ahead (a re-notched row zero-filled, not read), and
+// a step of kRows rows has two block barriers: the rows staged (before the
+// cascade reads neighbouring columns), the cascade's marks in (before the
+// stores).  The arithmetic is the tile body's: the roll-form sums, div5,
+// cfar_flag, the strict > first-maximum cascade; on a re-notched row the
+// staged zeros give the plain version's answer.
+constexpr int kNarrowTx = 64;        // output columns a strip
+constexpr int kNarrowPrefetch = 8;   // rows in flight ahead of a step's first
+
+__host__ __device__ constexpr int narrow_threads(int r, int g, int e) {
+  return (kNarrowTx + 2 * (2 * e + r + g) + 31) / 32 * 32;
+}
+
+// Shared memory of a narrow block: the ring of staged rows (kNarrowPrefetch
+// + kRows + g + r rows of the staged columns), the ring of velocity means
+// (2g + r + 1 + kRows rows of the kNarrowTx + 2e source columns), a step's
+// cascade marks (kRows rows of kNarrowTx bytes).
+__host__ __device__ constexpr int narrow_smem_bytes(int r, int g, int e) {
+  return 4 * ((kNarrowPrefetch + kRows + g + r) * (kNarrowTx + 2 * (2 * e + r + g)) +
+              (2 * g + r + 1 + kRows) * (kNarrowTx + 2 * e)) +
+         kRows * kNarrowTx;
+}
+
+template <int R, int G, int E>
+__global__ void __launch_bounds__(R > 0 ? narrow_threads(R, G, E) : 1024)
+narrow_cfar_kernel(const __grid_constant__ CfarArgs a) {
+  const int r = R > 0 ? R : a.r;
+  const int g = R > 0 ? G : a.g;
+  const int e = R > 0 ? E : a.e;
+  const int hr = 2 * e + r + g;      // range halo
+  const int sw = kNarrowTx + 2 * hr; // staged columns, one thread each
+  const int vw = kNarrowTx + 2 * e;  // source columns x0-e .. x0+kNarrowTx+e-1
+  const int dr = kNarrowPrefetch + kRows + g + r;
+  const int mr = 2 * g + r + 1 + kRows;
+  const int lag = g + r, mlag = 2 * g + r + 1;
+  extern __shared__ __align__(128) float smem[];
+  float* s_d = smem;                                             // [dr][sw]
+  float* s_mv = s_d + dr * sw;                                   // [mr][vw]
+  uint8_t* s_fo = reinterpret_cast<uint8_t*>(s_mv + mr * vw);    // [kRows][kNarrowTx]
+
+  // block -> (segment, strip, band); a segment's blocks run strip by strip,
+  // band fastest
+  int s = 0;
+  while (s + 1 < a.n_seg && static_cast<int>(blockIdx.x) >= a.first[s + 1]) ++s;
+  const int local = blockIdx.x - a.first[s];
+  const int strip = local / a.n_bands, band = local - strip * a.n_bands;
+  const int col0 = a.col0[s], ns = a.cend[s] - a.col0[s];
+  const int x0 = strip * kNarrowTx;  // first segment column of the strip
+  const int width = min(kNarrowTx, ns - x0);
+  const int yb = band * a.band_rows;
+  const int rows = min(a.band_rows, a.nvu - yb);
+  const size_t plane = static_cast<size_t>(blockIdx.y) * a.nv * a.nr;
+
+  // this thread's staged column c: segment column x, wrapped into the segment
+  const int c = threadIdx.x;
+  const bool staged = c < sw;
+  const int x = x0 - hr + c;
+  const int xs = x < 0 || x >= ns ? wrap(x, ns) : x;
+  const float* src = a.rdm + plane + static_cast<size_t>(a.lo) * a.nr + col0 + xs;
+  const int cx = c - (hr - e);       // source index, if 0 <= cx < vw
+  const bool source = cx >= 0 && cx < vw;
+  const int tx = c - hr;             // output index, if 0 <= tx < width
+  const bool output = tx >= 0 && tx < width;
+
+  // the clutter rows outside [lo, lo + nvu) carry no flags
+  if (band == 0 && output) {
+    const size_t o = plane + col0 + x0 + tx;
+    for (int k = 0; k < a.nv - a.nvu; ++k) {
+      const size_t ok = o + static_cast<size_t>(k < a.lo ? k : k + a.nvu) * a.nr;
+      a.flags[ok] = 0;
+      a.vflags[ok] = 0;
+    }
+  }
+
+  // Step i copies cropped row yb - lag + i (wrapped into [0, nvu)) into ring
+  // slot i % dr and forms the mean of the window ending there; from step
+  // 2 lag on it also decides cell y = yb + i - 2 lag, whose value is lag
+  // slots back and whose left mean mlag means back, as in the tile body.
+  const int n_steps = rows + 2 * lag;
+  int i_load = 0, slot_load = 0, y_load = wrap(yb - lag, a.nvu);
+  auto issue = [&]() {  // one row's copy, one cp.async group
+    if (staged && i_load < n_steps) {
+      const int row = a.lo + y_load;
+      const bool zero = row >= a.zero_lo && row < a.zero_hi;
+      cp_async4(s_d + slot_load * sw + c, zero ? a.rdm : src + static_cast<size_t>(y_load) * a.nr,
+                zero ? 0 : 4);
+    }
+    rsp::cp_async_commit();
+    ++i_load;
+    if (++slot_load == dr) slot_load = 0;
+    if (++y_load == a.nvu) y_load = 0;
+  };
+#pragma unroll
+  for (int k = 0; k < kNarrowPrefetch; ++k) issue();
+
+  auto next = [](int slot, int n, int ring) {
+    slot += n;
+    return slot >= ring ? slot - ring : slot;
+  };
+  // ring slots of step i0 (data, mean), of its cell's row and left mean
+  int sd = 0, sm = 0, sd_cell = (dr - lag % dr) % dr, sm_left = (mr - mlag % mr) % mr;
+  size_t o_next = plane + static_cast<size_t>(a.lo + yb) * a.nr + col0 + x0 + tx;
+  const float rf = static_cast<float>(r);
+  float w[R > 0 ? R - 1 + kRows : 1] = {};  // the sliding window, R > 0
+  for (int i0 = 0; i0 < n_steps; i0 += kRows) {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) issue();
+    rsp::cp_async_wait<kNarrowPrefetch>();  // this thread's rows i0 .. i0+kRows-1 landed
+    float mean[kRows];
+    if (source) {
+      if constexpr (R > 0) {
+#pragma unroll
+        for (int j = 0; j < R - 1; ++j) w[j] = w[j + kRows];
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) w[R - 1 + k] = s_d[next(sd, k, dr) * sw + c];
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+          float acc = w[R - 1 + k];
+#pragma unroll
+          for (int j = R - 2; j >= 0; --j) acc = __fadd_rn(acc, w[j + k]);
+          mean[k] = div_r<R>(acc, rf);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+          int sl = next(sd, k, dr);
+          float acc = s_d[sl * sw + c];
+          for (int j = 1; j < r; ++j) {
+            sl = sl == 0 ? dr - 1 : sl - 1;
+            acc = __fadd_rn(acc, s_d[sl * sw + c]);
+          }
+          mean[k] = __fdiv_rn(acc, rf);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) s_mv[next(sm, k, mr) * vw + cx] = mean[k];
+    }
+    const int sd_c = sd_cell, sm_l = sm_left;
+    sd = next(sd, kRows, dr);
+    sm = next(sm, kRows, mr);
+    sd_cell = next(sd_cell, kRows, dr);
+    sm_left = next(sm_left, kRows, mr);
+    if (i0 + kRows <= 2 * lag) continue;  // still filling the pipeline (own column only)
+
+    bool vf[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int i = i0 + k;
+      const int y = yb + i - 2 * lag;
+      vf[k] = false;
+      if (source && i >= 2 * lag && i < n_steps)
+        vf[k] = cfar_flag(s_d[next(sd_c, k, dr) * sw + c], s_mv[next(sm_l, k, mr) * vw + cx],
+                          mean[k], y - lag >= 0, y + lag <= a.nvu - 1, a.method, a.t);
+      if (output) s_fo[k * kNarrowTx + tx] = 0;
+    }
+    __syncthreads();  // every column of the rows staged, the marks clear
+
+    // every velocity hit marks its strongest range-flagged neighbour within
+    // the segment; candidate xc (staged column c + dd) from its windows
+    // ending at xc-g-1 and xc+g+r, read from the staged (wrapped) row
+    if (a.range_detect && x >= 0 && x < ns) {
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        if (!vf[k]) continue;
+        const float* row = s_d + next(sd_c, k, dr) * sw;
+        int best_off = kNoWinner;
+        float best = 0.f;
+        for (int dd = -e; dd <= e; ++dd) {
+          const int xc = x + dd;
+          if (xc < 0 || xc >= ns) continue;
+          const int sc = c + dd;
+          const float val = row[sc];
+          if (!cfar_flag(val, window_mean<R>(row + sc - g - 1, r, rf),
+                         window_mean<R>(row + sc + g + r, r, rf), xc - lag >= 0,
+                         xc + lag <= ns - 1, a.method, a.t))
+            continue;
+          if (best_off == kNoWinner || val > best) {
+            best = val;
+            best_off = dd;
+          }
+        }
+        const int target = tx + best_off;  // the marked cell
+        if (best_off != kNoWinner && target >= 0 && target < kNarrowTx)
+          s_fo[k * kNarrowTx + target] = 1;
+      }
+    }
+    __syncthreads();  // the marks are in; the rows' slots may be refilled after this
+
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int i = i0 + k;
+      if (i < 2 * lag || i >= n_steps) continue;
+      if (output) {
+        a.flags[o_next] = a.range_detect ? s_fo[k * kNarrowTx + tx] : vf[k];
+        a.vflags[o_next] = vf[k];
+      }
+      o_next += a.nr;
+    }
+  }
+  rsp::cp_async_wait<0>();
+}
+
 // Counts the float32 bit patterns x where div5(x) and __fdiv_rn(x, 5.0f)
 // differ in any bit, over all 2^32 of them, into *bad.
 __global__ void check_div5_kernel(unsigned long long* bad) {
@@ -571,6 +791,21 @@ cudaError_t launch(const Maps& maps, const CfarArgs& args, int n_blocks, int bat
   return cudaGetLastError();
 }
 
+template <int R, int G, int E>
+cudaError_t launch_narrow(const CfarArgs& args, int batch, cudaStream_t stream) {
+  const int smem = narrow_smem_bytes(args.r, args.g, args.e);
+  static int smem_set = -1;
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        narrow_cfar_kernel<R, G, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  narrow_cfar_kernel<R, G, E><<<dim3(args.first[args.n_seg], batch),
+                                narrow_threads(args.r, args.g, args.e), smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The number of float32 bit patterns where B1's division by 5 differs from
@@ -582,9 +817,10 @@ extern "C" int rsp_check_div5(void* bad, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared-memory bytes of one block staging sw columns a row.
-extern "C" int rsp_cascaded_cfar_smem_bytes(int sw, int r, int g) {
-  return smem_bytes(sw, r, g);
+// Shared-memory bytes of one block staging sw columns a row, or of one
+// block of the narrow body (sw = 0).
+extern "C" int rsp_cascaded_cfar_smem_bytes(int sw, int r, int g, int e) {
+  return sw == 0 ? narrow_smem_bytes(r, g, e) : smem_bytes(sw, r, g);
 }
 
 // One launch over all n_seg segments of a (batch, nv, nr) f32 RDM; flags and
@@ -599,9 +835,11 @@ extern "C" int rsp_cascaded_cfar(const void* rdm, void* flags, void* vflags, int
                                  int sw, int band_rows, int r, int g, int method, float t,
                                  int e, int range_detect, int zero_lo, int zero_hi, int tma,
                                  void* stream) {
-  const int halo = (2 * e + r + g + 3) / 4 * 4;
-  const int tx = sw - 2 * halo;
-  if (n_seg < 1 || n_seg > kMaxSegments || band_rows < 1 || tx < 4 || batch < 1 || nvu < 1)
+  const bool narrow = sw == 0;
+  const int halo = narrow ? 2 * e + r + g : (2 * e + r + g + 3) / 4 * 4;
+  const int tx = narrow ? kNarrowTx : sw - 2 * halo;
+  if (n_seg < 1 || n_seg > kMaxSegments || band_rows < 1 || tx < 4 || batch < 1 || nvu < 1 ||
+      (narrow && (tma || narrow_threads(r, g, e) > 1024)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (tma && (nr % 4 != 0 || reinterpret_cast<uintptr_t>(rdm) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -630,7 +868,16 @@ extern "C" int rsp_cascaded_cfar(const void* rdm, void* flags, void* vflags, int
   for (int i = 0; i < n_seg; ++i) {
     args.col0[i] = segments[i];
     args.cend[i] = segments[n_seg + i];
+    args.first[i + 1] = args.first[i] + (args.cend[i] - args.col0[i] + kNarrowTx - 1) /
+                                            kNarrowTx * args.n_bands;
   }
+  const auto st = static_cast<cudaStream_t>(stream);
+  // r = 5, g = 7, e = 1 (every shipped profile) is compiled for those
+  // windows; any other configuration takes them at run time
+  const bool shipped = r == 5 && g == 7 && e == 1;
+  if (narrow)
+    return static_cast<int>(shipped ? launch_narrow<5, 7, 1>(args, batch, st)
+                                    : launch_narrow<0, 0, 0>(args, batch, st));
   Maps maps{};
   if (tma) {
     const rsp::EncodeTiled encode = rsp::tensor_map_encoder();
@@ -651,10 +898,6 @@ extern "C" int rsp_cascaded_cfar(const void* rdm, void* flags, void* vflags, int
     }
   }
   const int n_blocks = (nr + tx - 1) / tx * args.n_bands;
-  const auto st = static_cast<cudaStream_t>(stream);
-  // r = 5, g = 7, e = 1 (every shipped profile) is compiled for those
-  // windows; any other configuration takes them at run time
-  const bool shipped = r == 5 && g == 7 && e == 1;
 #define RSP_CFAR_TILE(SW_)                                                                \
   if (sw == SW_)                                                                          \
     return static_cast<int>(shipped ? launch<SW_, 5, 7, 1>(maps, args, n_blocks, batch, st) \

@@ -328,7 +328,8 @@ def _g2_crafted(rng, batch, nr=3404, segments=G2_PROFILE.cfar_segments, n_clutte
         rdm[b, v[::2], r[::2] + 1] = rdm[b, v[::2], r[::2]]      # exact ties
         for a, e in segments:
             rdm[b, rng.integers(lo, hi, 4), [a, a + 1, e - 2, e - 1]] += 40.0
-    rdm[0, 60:124, nr - 80 : nr - 16] = _on_threshold(rng)   # its cell: (90, nr - 50)
+    if nr >= 80:
+        rdm[0, 60:124, nr - 80 : nr - 16] = _on_threshold(rng)   # its cell: (90, nr - 50)
     return rdm
 
 
@@ -359,6 +360,7 @@ SEGMENT_CASES = {
     "one-column": (400, ((0, 1), (1, 137), (137, 138), (138, 400))),
     "odd-width": (411, ((0, 3), (3, 229), (229, 411))),
     "strips-of-128": (200, ((0, 100), (100, 200))),   # the 128-column build
+    "narrow-rdm": (60, ((0, 3), (3, 40), (40, 60))),  # the narrow body
 }
 
 
@@ -379,14 +381,46 @@ def test_cascaded_cfar2d_kernel_narrow_misaligned_segments(rng, cuda_device, cas
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("notch", list(NOTCH))
+@pytest.mark.parametrize("body", ["tile", "narrow"])
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
+def test_cascaded_cfar2d_kernel_either_body(rng, cuda_device, monkeypatch, case, body, notch):
+    """Each kernel body on every segment case, whichever ``cfar_plan``
+    would pick for its width: the tile body on a narrow RDM, the narrow
+    body (several strips a segment) on a wide one, bit for bit against the
+    plain version, with the shipped windows and r = 8, g = 2, E = 3."""
+    nr, segments = SEGMENT_CASES[case]
+    x, zero = _renotch(rng, _g2_crafted(rng, 2, nr, segments), NOTCH[notch])
+    x = torch.from_numpy(x).to(cuda_device)
+    real = kcfar._launch_table
+
+    def forced(*key):
+        plan, table = real(*key)
+        cfg = CFARConfig(ref_cells=key[3], guard_cells=key[4], range_extend_cells=key[5],
+                         method=key[6])
+        return kcfar.plan_for(key[0], key[1], cfg, 128 if body == "tile" else 0, 16,
+                              body == "tile" and key[8] and nr % 4 == 0), table
+
+    monkeypatch.setattr(kcfar, "_launch_table", forced)
+    for cfg in (G2_PROFILE.cfar, CFARConfig(ref_cells=8, guard_cells=2, threshold=4.0,
+                                            range_extend_cells=3)):
+        got = kcfar.cascaded_cfar2d(x, cfg, 13, segments, zero_rows=zero)
+        want = _plain_renotched(x, segments, cfg, 13, zero)
+        assert int(want[0].sum()) > 0
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
 def test_cascaded_cfar2d_smem_matches_plan(cuda_device):
-    """The shared memory the kernel lays out is what cfar_plan sized."""
+    """The shared memory the kernel lays out is what cfar_plan sized, for
+    every tile and the narrow body."""
     from radar_signal_process_tpu_torch.kernels import _build
 
     lib = _build.library()
-    for sw in kcfar.STRIPS:
-        for r, g in ((5, 7), (1, 0), (8, 2), (300, 7)):
-            assert lib.rsp_cascaded_cfar_smem_bytes(sw, r, g) == kcfar.smem_bytes(sw, r, g)
+    for r, g, e in ((5, 7, 1), (1, 0, 0), (8, 2, 3), (300, 7, 1)):
+        for sw in kcfar.STRIPS:
+            assert lib.rsp_cascaded_cfar_smem_bytes(sw, r, g, e) == kcfar.smem_bytes(sw, r, g)
+        assert lib.rsp_cascaded_cfar_smem_bytes(0, r, g, e) == kcfar.narrow_smem_bytes(r, g, e)
 
 
 @pytest.mark.gpu
@@ -622,11 +656,12 @@ def _g0_rdm(rng, nr, n_clutter=6):
 @pytest.mark.parametrize("cfg", [G0_PROFILE.cfar, CFARConfig(threshold=5.0, range_extend_cells=2)],
                          ids=["g0-cfar", "E2"])
 def test_cascaded_cfar2d_kernel_bit_equal_at_g0(rng, cuda_device, nr, cfg, notch):
-    """G0's two segments: 62 columns (a row stride TMA cannot take, so the
-    cp.async staging path) and 512 (TMA)."""
+    """G0's two segments: 62 columns (no wider than a narrow strip, so the
+    narrow body) and 512 (the tile body, staged by TMA)."""
     rdm, zero = _renotch(rng, _g0_rdm(rng, nr), NOTCH[notch])
     rdm = torch.from_numpy(rdm).to(cuda_device)
-    assert kcfar.cfar_plan(((0, nr),), 2035, 1, cfg).tma == (nr == 512)
+    plan = kcfar.cfar_plan(((0, nr),), 2035, 1, cfg)
+    assert plan.narrow == (nr == 62) and plan.tma == (nr == 512)
     before = kcfar.cascaded_cfar2d.launches
     got_f, got_v = kcfar.cascaded_cfar2d(rdm, cfg, 6, zero_rows=zero)
     want_f, want_v = _plain_renotched(rdm, None, cfg, 6, zero)

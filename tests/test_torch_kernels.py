@@ -147,19 +147,22 @@ def test_cascaded_cfar2d_segments_cpu_dispatch(rng):
 
 
 # name -> (segments, cropped rows nvu, batch, CFAR config, expected staged
-# tile width, expected staging: TMA (row stride a multiple of 16 bytes) or
-# cp.async)
+# tile width (0: the narrow body), expected staging: TMA (row stride a
+# multiple of 16 bytes) or cp.async)
 PLANS = {
     "g2": (G2_PROFILE.cfar_segments, 303, 52, G2_PROFILE.cfar, 256, True),
     "g2-batch1": (G2_PROFILE.cfar_segments, 303, 1, G2_PROFILE.cfar, 256, True),
     "sweep": (G2_PROFILE.cfar_segments, 303, 4, G2_PROFILE.cfar, 256, True),
-    "g0-short": (((0, 62),), 2035, 1, CFARConfig(), 128, False),
+    # G0's short segment, no wider than a narrow strip: the narrow body
+    "g0-short": (((0, 62),), 2035, 1, CFARConfig(), 0, False),
     "g0-long": (((0, 512),), 2035, 1, CFARConfig(), 128, True),
     # segments narrower than the 14-column range halo, misaligned starts
     "tiny": (((0, 3), (3, 20), (20, 21), (21, 150)), 23, 2, CFARConfig(threshold=2.0), 128,
              False),
     "mid": (((0, 100), (100, 127)), 40, 2, CFARConfig(), 128, False),
-    "narrow-only": (((0, 5), (5, 13)), 7, 3, CFARConfig(ref_cells=1, guard_cells=0), 128, False),
+    "narrow-only": (((0, 5), (5, 13)), 7, 3, CFARConfig(ref_cells=1, guard_cells=0), 0, False),
+    "narrow-segments": (((0, 3), (3, 40), (40, 64)), 60, 2, CFARConfig(), 0, False),
+    "one-past-narrow": (((0, 3), (3, 40), (40, 65)), 60, 2, CFARConfig(), 128, False),
     "E127": (((0, 700),), 50, 3, CFARConfig(range_extend_cells=127), 1024, True),
     # the halo-extended blocks of a G2 window on sp = 2 and 4 range shards,
     # their rows widened to whole 16 bytes (the last segment takes the columns)
@@ -167,6 +170,11 @@ PLANS = {
                  + ((965, 1732),), 303, 52, G2_PROFILE.cfar, 256, True),
     "halo-sp4": (kcfar.extended_segments(3404, G2_PROFILE.cfar_segments, 851, 851, 14)[:-1]
                  + ((114, 880),), 303, 52, G2_PROFILE.cfar, 256, True),
+    # the edge ranks' blocks: a dummy segment of wrapped columns first or last
+    "halo-sp2-last": (kcfar.extended_segments(3404, G2_PROFILE.cfar_segments, 1702, 1702, 14)[:-1]
+                      + ((1716, 1732),), 303, 52, G2_PROFILE.cfar, 256, True),
+    "halo-sp4-first": (kcfar.extended_segments(3404, G2_PROFILE.cfar_segments, 0, 851, 14)[:-1]
+                       + ((242, 880),), 303, 52, G2_PROFILE.cfar, 256, True),
 }
 
 
@@ -175,42 +183,70 @@ def test_cfar_plan_covers_every_cell_once(case):
     """The block map of the one B1 launch: every output cell of the RDM
     belongs to exactly one block, every clutter-row column to exactly one
     first-band block, a block fits the card (threads, shared memory), its
-    four-column groups start on 16-byte boundaries, and the shape takes the
-    staging path it should."""
+    columns start on 16-byte boundaries (the tile body) or lie in one
+    segment (the narrow body), and the shape takes the body and the staging
+    path it should, from the shape alone."""
     segments, nvu, batch, cfg, sw, tma = PLANS[case]
     plan = kcfar.cfar_plan(segments, nvu, batch, cfg)
     r, g, e = cfg.ref_cells, cfg.guard_cells, cfg.range_extend_cells
-    assert (plan.sw, plan.tma) == (sw, tma)
-    assert plan.halo >= 2 * e + r + g and plan.halo % 4 == 0 and plan.tx == sw - 2 * plan.halo
-    assert plan.tx % 4 == 0 and plan.threads == sw // kcfar.COLS <= 1024
-    assert plan.smem == kcfar.smem_bytes(sw, r, g) <= kcfar.SMEM_LIMIT
-    assert plan.table == tuple((a, b - a) for a, b in segments)
     nr = segments[-1][1]
-    assert plan.n_strips == -(-nr // plan.tx) and plan.n_bands == -(-nvu // plan.band_rows)
+    assert (0 if plan.narrow else plan.sw, plan.tma) == (sw, tma)
+    assert plan.narrow == (nr <= kcfar.NARROW_TX)
+    if plan.narrow:
+        assert plan.halo == 2 * e + r + g and plan.tx == kcfar.NARROW_TX
+        assert plan.sw == plan.tx + 2 * plan.halo and plan.threads == kcfar.narrow_threads(r, g, e)
+        assert plan.threads % 32 == 0 and plan.sw <= plan.threads <= 1024
+        assert plan.smem == kcfar.narrow_smem_bytes(r, g, e) <= kcfar.SMEM_LIMIT
+        assert plan.n_strips == sum(-(-(b - a) // plan.tx) for a, b in segments)
+    else:
+        assert plan.halo >= 2 * e + r + g and plan.halo % 4 == 0
+        assert plan.tx == sw - 2 * plan.halo and plan.tx % 4 == 0
+        assert plan.threads == sw // kcfar.COLS <= 1024
+        assert plan.smem == kcfar.smem_bytes(sw, r, g) <= kcfar.SMEM_LIMIT
+        assert plan.n_strips == -(-nr // plan.tx)
+    assert plan.table == tuple((a, b - a) for a, b in segments)
+    assert plan.n_bands == -(-nvu // plan.band_rows)
     cells = np.zeros((nvu, nr), np.int32)
     crop = np.zeros(nr, np.int32)
     for block in range(plan.n_blocks):
-        x0, y_begin, y_end = kcfar.plan_tile(plan, block)
-        assert 0 <= x0 < nr and 0 <= y_begin < nvu and (x0 - plan.halo) % 4 == 0
-        cols = slice(x0, min(x0 + plan.tx, nr))
-        cells[y_begin:y_end, cols] += 1
+        x0, x1, y_begin, y_end = kcfar.plan_tile(plan, block)
+        assert 0 <= x0 < x1 <= nr and 0 <= y_begin < nvu
+        if plan.narrow:
+            assert any(a <= x0 and x1 <= b for a, b in segments)
+        else:
+            assert (x0 - plan.halo) % 4 == 0 and x1 == min(x0 + plan.tx, nr)
+        cells[y_begin:y_end, x0:x1] += 1
         if y_begin == 0:
-            crop[cols] += 1
+            crop[x0:x1] += 1
     assert (cells == 1).all() and (crop == 1).all()
     assert not kcfar.cfar_plan(segments, nvu, batch, cfg, aligned=False).tma
 
 
 def test_cfar_plan_bands():
     """G2 keeps long bands (the velocity pipeline fills once per 101 rows)
-    in strips of 224 columns, five blocks of 64 threads an SM; the single G0
-    segments cut their 2035 rows into short bands, so the one RDM of a call
-    still spreads over the card."""
+    in strips of 224 columns, five blocks of 64 threads an SM; the mesh's
+    halo-extended blocks take G2's bands too, whole waves of the card (one
+    at sp = 4, two at sp = 2), and the sweep's batch one wave of bands of
+    31 rows; the single G0 segments cut their 2035 rows into short
+    bands, so the one RDM of a call still spreads over the card, the short
+    segment into bands of one 4-row step."""
     g2 = kcfar.cfar_plan(G2_PROFILE.cfar_segments, 303, 52, G2_PROFILE.cfar)
     assert (g2.sw, g2.tx, g2.threads, g2.band_rows, g2.n_bands) == (256, 224, 64, 101, 3)
     assert g2.n_blocks * 52 == 2496 and g2.smem == 43048   # five blocks per SM
     assert 233472 // (g2.smem + 1024) == 5
+    slots = 5 * kcfar.H100_SMS
+    for case, waves in (("halo-sp2", 2), ("halo-sp4", 1), ("halo-sp2-last", 2),
+                        ("halo-sp4-first", 1)):
+        segments, nvu, batch, cfg = PLANS[case][:4]
+        plan = kcfar.cfar_plan(segments, nvu, batch, cfg)
+        assert (plan.sw, plan.band_rows) == (256, 101)
+        assert -(-plan.n_blocks * batch // slots) == waves
+    sweep = kcfar.cfar_plan(G2_PROFILE.cfar_segments, 303, 4, G2_PROFILE.cfar)
+    assert (sweep.sw, sweep.band_rows) == (256, 31)
+    assert sweep.n_blocks * 4 <= slots   # one wave, 14 steps a block
     short = kcfar.cfar_plan(((0, 62),), 2035, 1, CFARConfig())
     long = kcfar.cfar_plan(((0, 512),), 2035, 1, CFARConfig())
+    assert (short.narrow, short.band_rows, long.sw, long.band_rows) == (True, 4, 128, 12)
     for plan in (short, long):
         assert plan.n_blocks >= 2 * kcfar.H100_SMS and plan.band_rows <= 16
     with pytest.raises(ValueError, match="segments"):
@@ -218,6 +254,21 @@ def test_cfar_plan_bands():
                         CFARConfig())
     with pytest.raises(ValueError, match="threads"):
         kcfar.cfar_plan(((0, 100),), 50, 1, CFARConfig(ref_cells=300))
+
+
+@pytest.mark.parametrize("band_rows,steps", [(1, 7), (4, 7), (5, 8), (8, 8), (12, 9), (101, 32)])
+def test_cfar_plan_cost_counts_whole_steps_and_waves(band_rows, steps):
+    """The band model prices a band by its whole 4-row steps (the 2(g+r) =
+    24 rows of pipeline fill at FILL_SHARE) and a launch by its whole waves
+    of resident blocks: one block past a full wave costs a second wave."""
+    cfg = G2_PROFILE.cfar
+    fill = 2 * (cfg.guard_cells + cfg.ref_cells) // kcfar.ROWS
+    per_step = steps - (1 - kcfar.FILL_SHARE) * fill
+    slots = 5 * kcfar.H100_SMS   # five blocks of the 256-column tile an SM
+    for n_blocks, waves in ((slots, 1), (slots + 1, 2)):
+        plan = kcfar.plan_for(((0, 224),), n_blocks * band_rows, cfg, 256, band_rows)
+        assert plan.n_blocks == n_blocks
+        assert kcfar.plan_cost(plan, 1, cfg) == pytest.approx(waves * per_step)
 
 
 # ------------------------------------------------------- B1 with the re-notch
