@@ -1,0 +1,10 @@
+"""B1's share of its roofline: the least time its calls need over the
+device time of its kernels, in the traced window (``rooflines.py``)."""
+
+from benchmark.rooflines import roofline_pct
+
+PREFIXES = ("cascaded_cfar_kernel", "narrow_cfar_kernel")
+
+
+def read(ctx):
+    return roofline_pct(ctx, "b1", PREFIXES)

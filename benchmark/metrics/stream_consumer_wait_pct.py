@@ -1,0 +1,13 @@
+"""The share of the traced part of the window that ``StreamingPipeline``'s
+consumer spent waiting: the change of its ``consumer_wait_s`` counter between
+the two ends of the traced part, over its length.  The counters are read
+before the profiler stops, so its stop and parse, which stall the loop,
+count in neither."""
+
+
+def read(ctx):
+    before, after = ctx.trace.counters
+    if not ctx.trace.window_s or "consumer_wait_s" not in after:
+        return None
+    waited = after["consumer_wait_s"] - before.get("consumer_wait_s", 0.0)
+    return 100.0 * waited / ctx.trace.window_s
