@@ -36,6 +36,7 @@ from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
 from radar_signal_process_tpu_torch.ops.cfar import segmented_cfar_flags, segmented_cfar_select
 from radar_signal_process_tpu_torch.ops.measure import DetectionList, extract_detections
 from radar_signal_process_tpu_torch.ops.mtd import notch_mask, notch_mask_unshifted
+from radar_signal_process_tpu_torch.utils.profiling import span
 
 # the detector's CFAR-stage re-notch, N/20 rows (CFAR_WangCai/fun_0v_pressing.m)
 RENOTCH_DIVISOR = 20
@@ -241,9 +242,12 @@ class Detector(nn.Module):
         self.device = resolve_device(device)  # no tensor lives on it: the re-notch is fused
 
     def forward(self, rdm: torch.Tensor):
-        zero = renotch_rows(self.profile, rdm.shape[-2], self.n_clutter, self.renotch_divisor)
-        flags, vflags = _cascade(rdm, zero, self.profile, self.n_clutter, self.cfg)
-        dets: DetectionList = extract_detections(flags, rdm, self.max_detections)
+        with span("detect.cfar", "launch"):
+            zero = renotch_rows(self.profile, rdm.shape[-2], self.n_clutter,
+                                self.renotch_divisor)
+            flags, vflags = _cascade(rdm, zero, self.profile, self.n_clutter, self.cfg)
+        with span("detect.extract", "launch"):
+            dets: DetectionList = extract_detections(flags, rdm, self.max_detections)
         return flags, vflags, dets
 
 

@@ -52,6 +52,7 @@ from radar_signal_process_tpu_torch.ops.pulse_compression import (
 )
 from radar_signal_process_tpu_torch.ops.tables import angle_k_values, freq_value
 from radar_signal_process_tpu_torch.params import g0_chain_params
+from radar_signal_process_tpu_torch.utils.profiling import span
 
 C_LIGHT = 299792458.0
 
@@ -169,7 +170,8 @@ class G0Chain(nn.Module):
         def one(x):
             if isinstance(x, np.ndarray):
                 x = torch.from_numpy(np.asarray(x, dtype=np.complex64))
-            return x.to(self.device, COMPLEX)
+            with span("g0.h2d", "copy", x.numel() * x.element_size()):
+                return x.to(self.device, COMPLEX)
 
         return torch.stack([one(left), one(right)])
 
@@ -215,44 +217,52 @@ class G0Chain(nn.Module):
         ``freq_index``/``beam_pos`` default to the chain's; pass the frame's
         own parsed ``freInd``/``beamPosNum`` for per-frame agility.
         """
-        params, n_clutter = self.frame_params(
-            self.freq_index if freq_index is None else freq_index,
-            self.beam_pos if beam_pos is None else beam_pos,
-        )
-        abs_short, abs_long = self.front(self.beams(left, right))
-        sum_short = zero_velocity_notch_unshifted(abs_short[0] + abs_short[1], n_clutter)
-        sum_long = zero_velocity_notch_unshifted(abs_long[0] + abs_long[1], n_clutter)
-        diff_short = abs_short[1] - abs_short[0]
-        diff_long = abs_long[1] - abs_long[0]
+        with span("g0.params", "launch"):
+            params, n_clutter = self.frame_params(
+                self.freq_index if freq_index is None else freq_index,
+                self.beam_pos if beam_pos is None else beam_pos,
+            )
+        beams = self.beams(left, right)
+        with span("g0.front", "launch"):
+            abs_short, abs_long = self.front(beams)
+        del beams             # the stack is let go once B3 has been enqueued
+        with span("g0.combine", "launch"):
+            sum_short = zero_velocity_notch_unshifted(abs_short[0] + abs_short[1], n_clutter)
+            sum_long = zero_velocity_notch_unshifted(abs_long[0] + abs_long[1], n_clutter)
+            diff_short = abs_short[1] - abs_short[0]
+            diff_long = abs_long[1] - abs_long[0]
 
         cfar = self.profile.cfar
-        flags_s, vflags_s = cascaded_cfar2d(sum_short, cfar, n_clutter)
-        flags_l, vflags_l = cascaded_cfar2d(sum_long, cfar, n_clutter)
-        dets_s = extract_detections(flags_s, sum_short, self.max_detections)
-        dets_l = extract_detections(flags_l, sum_long, self.max_detections)
+        with span("g0.cfar", "launch"):
+            flags_s, vflags_s = cascaded_cfar2d(sum_short, cfar, n_clutter)
+            flags_l, vflags_l = cascaded_cfar2d(sum_long, cfar, n_clutter)
+        with span("g0.extract", "launch"):
+            dets_s = extract_detections(flags_s, sum_short, self.max_detections)
+            dets_l = extract_detections(flags_l, sum_long, self.max_detections)
 
         chain = self.chain
-        common = dict(
-            delta_r=self.profile.delta_r,
-            v_scale=params.v_scale,
-            delta_v=params.delta_v,
-            k_value=params.k_value,
-            beam_pos=params.beam_pos,
-            beam_angle_step=chain.beam_angle_step,
-            n_clutter=n_clutter,
-            extra_dots=chain.extra_dots,
-            r_interp=chain.r_interp_times,
-            v_interp=chain.v_interp_times,
-            ele_angle_comp=chain.ele_angle_comp,
-            ele_angle_sys_err=chain.ele_angle_sys_err,
-            spectral_width_db=self.spectral_width_db,
-            spectral_width_shifted=False,
-            spectral_width_interp=self.spectral_width_interp,
-        )
-        meas_s = motion_parameters(sum_short, diff_short, dets_s, r_scale=self.r_scale_short,
-                                   **common)
-        meas_l = motion_parameters(sum_long, diff_long, dets_l, r_scale=self.r_scale_long,
-                                   **common)
+        with span("g0.measure", "launch"):
+            common = dict(
+                delta_r=self.profile.delta_r,
+                v_scale=params.v_scale,
+                delta_v=params.delta_v,
+                k_value=params.k_value,
+                beam_pos=params.beam_pos,
+                beam_angle_step=chain.beam_angle_step,
+                n_clutter=n_clutter,
+                extra_dots=chain.extra_dots,
+                r_interp=chain.r_interp_times,
+                v_interp=chain.v_interp_times,
+                ele_angle_comp=chain.ele_angle_comp,
+                ele_angle_sys_err=chain.ele_angle_sys_err,
+                spectral_width_db=self.spectral_width_db,
+                spectral_width_shifted=False,
+                spectral_width_interp=self.spectral_width_interp,
+            )
+            meas_s = motion_parameters(sum_short, diff_short, dets_s,
+                                       r_scale=self.r_scale_short, **common)
+            meas_l = motion_parameters(sum_long, diff_long, dets_l,
+                                       r_scale=self.r_scale_long, **common)
         return G0FrameResult(
             rdm_sum_short=sum_short, rdm_sum_long=sum_long,
             rdm_diff_short=diff_short, rdm_diff_long=diff_long,

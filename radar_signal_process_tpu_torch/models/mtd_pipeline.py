@@ -31,6 +31,7 @@ from radar_signal_process_tpu_torch.ops.pulse_compression import (
     segmented_pulse_compression,
 )
 from radar_signal_process_tpu_torch.params import ChainParams, chain_params, cpi_params
+from radar_signal_process_tpu_torch.utils.profiling import span
 
 
 def window_slice_starts(prts_per_slice: int, win_size: int) -> Tuple[int, ...]:
@@ -93,15 +94,18 @@ def mtd_window_produce(
     stay per slice.  ``params`` is a :class:`ChainParams` or a module
     holding the same buffers (:class:`FrameProcessor`).
     """
-    if profile.mtd.istc and params.stc_gain is not None:
-        echo_win = istc_compensate(echo_win, params.stc_gain)
-    pc_win = segmented_pulse_compression(
-        echo_win, profile, params.pc_spectra, params.pc_filter_lens
-    )
-    pc = slice_cpi_window(pc_win, win_size)
-    if profile.mtd.mti_lag:
-        pc = mti_cancel(pc, lag=profile.mtd.mti_lag)
-    return _form_rdm(pc, profile, params)
+    with span("mtd.pc", "launch"):
+        if profile.mtd.istc and params.stc_gain is not None:
+            echo_win = istc_compensate(echo_win, params.stc_gain)
+        pc_win = segmented_pulse_compression(
+            echo_win, profile, params.pc_spectra, params.pc_filter_lens
+        )
+    with span("mtd.slice", "launch"):
+        pc = slice_cpi_window(pc_win, win_size)
+    with span("mtd.rdm", "launch"):
+        if profile.mtd.mti_lag:
+            pc = mti_cancel(pc, lag=profile.mtd.mti_lag)
+        return _form_rdm(pc, profile, params)
 
 
 class FrameProcessor(nn.Module):

@@ -51,6 +51,7 @@ from radar_signal_process_tpu_torch.parallel.sharding import (
 )
 from radar_signal_process_tpu_torch.params import chain_params
 from radar_signal_process_tpu_torch.utils import Counters
+from radar_signal_process_tpu_torch.utils.profiling import span
 
 
 class StreamResult(NamedTuple):
@@ -186,8 +187,10 @@ class StreamingPipeline:
                 break
             # (prt, samples, channels); a copy, since a reader may reuse its
             # buffer, and pinned so the device copy is asynchronous
-            host = torch.from_numpy(np.asarray(res.iq, dtype=np.complex64))
-            host = host.pin_memory() if self.device.type == "cuda" else host.clone()
+            with span("stream.pin", "pin") as s:
+                host = torch.from_numpy(np.asarray(res.iq, dtype=np.complex64))
+                host = host.pin_memory() if self.device.type == "cuda" else host.clone()
+                s.nbytes = host.numel() * host.element_size()
             t0 = time.perf_counter()
             self._queue.put((idx, host))
             # time the producer spent blocked on a full queue (compute is
@@ -203,12 +206,14 @@ class StreamingPipeline:
         copy), then its dp beams of the beams padded to the dp extent."""
         if self._mesh is not None:
             host = local_block(host, self._mesh, ("sp",))
-        frame = host.to(self.device, non_blocking=True)
-        if self._dbf is not None:
-            frame = apply_dbf(frame, self._dbf)
-        frame = frame.permute(2, 0, 1)
-        if self._mesh is None:
-            return frame.contiguous()
+        with span("stream.h2d", "copy", host.numel() * host.element_size()):
+            frame = host.to(self.device, non_blocking=True)
+        with span("stream.dbf", "launch"):
+            if self._dbf is not None:
+                frame = apply_dbf(frame, self._dbf)
+            frame = frame.permute(2, 0, 1)
+            if self._mesh is None:
+                return frame.contiguous()
         self._n_beams = frame.shape[0]
         pad = (-frame.shape[0]) % axis_size(self._mesh, "dp")
         if pad:
