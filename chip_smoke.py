@@ -54,7 +54,8 @@ Phases, each printing one line (or a few), any failure exits non-zero:
 8. G0      — writes a seeded 4-frame G1 capture (the known-good target,
    per-frame frequency indices 5, 2, 9, 5) and runs
    ``radar_signal_process_tpu_torch.cli dmx`` over it at full G0 width;
-   checks B3 and B1 ran (B1 once per segment), the RDMs are finite and agree with the plain
+   checks B3 and B1 ran (once a segment on each n_clutter's eager frame and
+   on its graph's capture, none on a replay), the RDMs are finite and agree with the plain
    versions, and the target is measured within 0.3 m/s and 2 range cells in
    every frame; times each stage with CUDA events, the ``.bin`` parse, and
    the frame rate against the radar's 12.5 frames/s;
@@ -85,8 +86,8 @@ Phases, each printing one line (or a few), any failure exits non-zero:
    wall seconds per frame, file I/O apart from device time;
 13. dmx outputs — ``cli dmx --gps --save-results`` (and ``--plots`` where
    matplotlib is installed, decided before the run) over the G0 phase's
-   capture with a GPS track of the truth beside it: B3 and B1 twice per
-   frame, finite residuals for every long-pulse detection, the result
+   capture with a GPS track of the truth beside it: B3 and B1 as in 8,
+   finite residuals for every long-pulse detection, the result
    struct with the chain's config echo;
 14. mesh   — the multi-device layer on one card, run within phases 5 and 11
    on their captures: ``cli stream --mesh 1x1`` over the slice capture in
@@ -1367,6 +1368,18 @@ def write_g0_scene(root: str, prof, chain_cfg, rng) -> tuple[float, float]:
     return fd, r_true
 
 
+def g0_kernel_calls(frames) -> int:
+    """Calls of B3, and of B1, that a G0 chain on the card makes over
+    ``frames`` ((freq_index, beam_pos) in order): one a segment on the first
+    frame of each n_clutter, which runs eagerly, and on its second, which
+    captures the frame's graph; none on a replay."""
+    from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
+
+    chain = G0Chain(device="cpu")
+    keys = [chain.frame_params(fi, bp)[1] for fi, bp in frames]
+    return 2 * sum(min(keys.count(k), 2) for k in set(keys))
+
+
 def phase_g0_slice(dev) -> dict:
     from radar_signal_process_tpu_torch import cli
     from radar_signal_process_tpu_torch.config import G0_PROFILE as prof
@@ -1424,8 +1437,10 @@ def phase_g0_slice(dev) -> dict:
             fail(f"G0: cli dmx rc {rc}, {len(stamps)} frames (want {len(G0_FREQ_INDEX)})")
         if min(launches.values()) < 1:
             fail(f"G0: a kernel did not run on the main path: {launches}")
-        if launches["cascaded_cfar2d"] != 2 * len(stamps):   # one B1 call per segment
-            fail(f"G0: {launches['cascaded_cfar2d']} B1 launches for {len(stamps)} frames")
+        calls = g0_kernel_calls(zip(G0_FREQ_INDEX, G0_BEAM_POS))
+        if launches != {"fused_pc_rdm": calls, "cascaded_cfar2d": calls}:
+            fail(f"G0: launches {launches} for {len(stamps)} frames (want {calls} of each: "
+                 "one a segment on each n_clutter's eager frame and on its capture)")
         rate = (len(stamps) - 1) / (stamps[-1] - stamps[0])
         reader_cls = g1_reader_class()   # the one the CLI picked by default
         print(f"G0: cli dmx ({reader_cls.__name__}) {len(stamps)} frames in {wall:.2f} s "
@@ -2019,8 +2034,9 @@ def phase_dmx_outputs(dev, root: str, fd: float, r_true: float) -> dict:
     launches = {"fused_pc_rdm": kpcr.fused_pc_rdm.launches,
                 "cascaded_cfar2d": kcfar.cascaded_cfar2d.launches}
     out = json.loads(buf.getvalue())
-    if rc != 0 or launches != {"fused_pc_rdm": 2 * n, "cascaded_cfar2d": 2 * n}:
-        fail(f"dmx outputs: cli dmx rc {rc}, launches {launches} (want 2 of each per frame)")
+    calls = g0_kernel_calls(zip(G0_FREQ_INDEX, G0_BEAM_POS))
+    if rc != 0 or launches != {"fused_pc_rdm": calls, "cascaded_cfar2d": calls}:
+        fail(f"dmx outputs: cli dmx rc {rc}, launches {launches} (want {calls} of each)")
     n_long = sum(len(f["long"]["range_m"]) for f in out["frames"])
     res = {k: out.get(f"gps_{k}_residuals") for k in ("range", "velocity")}
     for k, r in res.items():

@@ -18,6 +18,14 @@ On a CUDA device the front runs B3 and the CFAR runs B1, and nothing else;
 on the CPU both run their plain versions.  The JAX class's ``use_split`` /
 ``_front`` / ``_finish`` split works around XLA on the CPU and has no
 counterpart here.
+
+On a CUDA device everything after the beams' copy is replayed as one CUDA
+graph per clutter-row count ``n_clutter`` (which sets B1's rows, the notch
+and the measurement's clamps; shapes are fixed by the profile).  The
+frame's other values (velocity scale, Doppler cell, monopulse slope, beam
+elevation) are one row of a table made once on the card, copied into the
+block the graph reads; the notch masks and spline matrices are made once
+too, so a frame copies nothing from the host but its beams.
 """
 
 from __future__ import annotations
@@ -37,14 +45,19 @@ from radar_signal_process_tpu_torch.config import (
 )
 from radar_signal_process_tpu_torch.device import COMPLEX, REAL, resolve_device
 from radar_signal_process_tpu_torch.kernels.cfar import cascaded_cfar2d
-from radar_signal_process_tpu_torch.kernels.pc_rdm import fused_pc_rdm
+from radar_signal_process_tpu_torch.kernels.pc_rdm import fused_pc_rdm, prepared_operator_image
 from radar_signal_process_tpu_torch.ops.measure import (
     DetectionList,
     Measurements,
     extract_detections,
     motion_parameters,
+    spline_eval_matrix,
 )
-from radar_signal_process_tpu_torch.ops.mtd import doppler_process, zero_velocity_notch_unshifted
+from radar_signal_process_tpu_torch.ops.mtd import (
+    doppler_process,
+    notch_mask_unshifted,
+    zero_velocity_notch_unshifted,
+)
 from radar_signal_process_tpu_torch.ops.pulse_compression import (
     fir_compress,
     fir_spectrum,
@@ -81,6 +94,70 @@ class G0FrameResult(NamedTuple):
     measurements_long: Measurements
 
 
+def _leaves(x) -> list:
+    """The leaves of a nest of named tuples, depth first (``None`` kept)."""
+    if isinstance(x, tuple):
+        return [leaf for item in x for leaf in _leaves(item)]
+    return [x]
+
+
+def _rebuild(skeleton, leaves):
+    """``skeleton``'s nest of named tuples with its leaves taken in turn from
+    the iterator ``leaves``."""
+    if isinstance(skeleton, tuple):
+        return type(skeleton)._make(_rebuild(item, leaves) for item in skeleton)
+    return next(leaves)
+
+
+def pack_result(result: G0FrameResult) -> tuple[torch.Tensor, tuple, G0FrameResult]:
+    """Every tensor of ``result`` in one flat byte block (4-byte values
+    first, so each lies on a multiple of its size), each leaf's ``(dtype,
+    offset in its elements, shape, strides)`` there (None for a leaf that is
+    None), and the result's nest with leaf numbers in place of its tensors."""
+    leaves = _leaves(result)
+    order = sorted((i for i, t in enumerate(leaves) if t is not None),
+                   key=lambda i: -leaves[i].element_size())
+    block = torch.cat([leaves[i].reshape(-1).view(torch.uint8) for i in order])
+    layout, offset = [None] * len(leaves), 0
+    for i in order:
+        t = leaves[i]
+        shape = tuple(t.shape)
+        layout[i] = (t.dtype, offset // t.element_size(), shape,
+                     torch.empty(shape, device="meta").stride())
+        offset += t.numel() * t.element_size()
+    return block, tuple(layout), _rebuild(result, iter(range(len(leaves))))
+
+
+def unpack_result(block: torch.Tensor, layout: tuple, skeleton: G0FrameResult) -> G0FrameResult:
+    """The result :func:`pack_result` packed into ``block``, as views of it
+    (one view of the block a dtype, then one strided view a tensor)."""
+    typed = {}
+    for spec in layout:
+        if spec is not None and spec[0] not in typed:
+            size = spec[0].itemsize
+            typed[spec[0]] = block[: block.numel() // size * size].view(spec[0])
+    return _rebuild(skeleton, iter(
+        None if spec is None else typed[spec[0]].as_strided(spec[2], spec[3], spec[1])
+        for spec in layout))
+
+
+class _Replay(NamedTuple):
+    """One captured frame: the graph writes every output into ``out``
+    (:func:`pack_result`'s block); ``images`` are the B3 operator images it
+    reads, held so that their memory lives as long as the graph."""
+
+    graph: torch.cuda.CUDAGraph
+    out: torch.Tensor
+    layout: tuple
+    skeleton: G0FrameResult
+    images: tuple
+
+    def result(self) -> G0FrameResult:
+        """The last replay's result, in a copy of ``out`` (one launch) that no
+        later replay writes."""
+        return unpack_result(self.out.clone(), self.layout, self.skeleton)
+
+
 class G0Chain(nn.Module):
     """G0 per-frame processor with its constants as buffers on ``device``
     (the card unless the caller asks for the CPU; a CUDA device that is
@@ -89,7 +166,18 @@ class G0Chain(nn.Module):
     ``freq_index``/``beam_pos`` are the defaults; :meth:`process_frame`
     takes per-frame values (parsed from each frame's header), so a
     frequency-hopping capture gets per-frame velocity scales and monopulse
-    slopes.
+    slopes.  Those values, for every (frequency, beam) of the calibration
+    tables, are the rows of ``frame_values``: the velocity scale
+    (``mtd_fft``), then ``delta_v``, ``k_value`` and the beam elevation
+    ``beam_pos * beam_angle_step + 2.5``, each computed on the host in
+    float64 and stored as the float32 a Python float becomes in a float32
+    operation.  ``notch_keep`` (one keep-mask per ``n_clutter`` of the
+    frequency plan) and ``splines`` (the range and velocity spline matrices)
+    are made once beside them.
+
+    On a CUDA device :meth:`process_frame` replays its device work as a CUDA
+    graph (see there); ``captures``, ``replays`` and ``eager_frames`` count
+    the graphs captured and the frames replayed or run eagerly.
     """
 
     def __init__(
@@ -124,21 +212,67 @@ class G0Chain(nn.Module):
             np.arange(-chain.mtd_fft_length // 2, chain.mtd_fft_length // 2)
             * self._delta_doppler
         )
+        self._k_table = angle_k_values(chain.sys_num)
+        n_freq, self._n_beams = self._k_table.shape
+        n_fft = chain.mtd_fft_length
+        values = np.empty((n_freq, self._n_beams, n_fft + 3), np.float32)
+        clutter = set()
+        for f in range(n_freq):
+            delta_v, n_clutter, v_scale = self._frequency_terms(f)
+            values[f, :, :n_fft] = v_scale
+            values[f, :, n_fft] = delta_v
+            clutter.add(n_clutter)
+        values[..., n_fft + 1] = self._k_table
+        values[..., n_fft + 2] = np.arange(self._n_beams) * chain.beam_angle_step + 2.5
+        self.frame_values = torch.from_numpy(values.reshape(n_freq * self._n_beams, -1)).to(
+            self.device)
+        self.notch_keep = {
+            n_c: torch.as_tensor(notch_mask_unshifted(n_fft, n_c), dtype=REAL, device=self.device)
+            for n_c in sorted(clutter)
+        }
+        w = 2 * chain.extra_dots + 1
+        self.splines = tuple(
+            torch.as_tensor(spline_eval_matrix(w, u), dtype=REAL, device=self.device)
+            for u in (chain.r_interp_times, chain.v_interp_times)
+        )
         self._params_cache: dict = {}
         fp, self.n_clutter = self.frame_params(freq_index, beam_pos)
         self.delta_v = fp.delta_v
         self.k_value = fp.k_value
 
+        # the graph path: static input, the block of frame values the graphs
+        # read, one graph per n_clutter, all in one memory pool; spectral
+        # widths upsampled by a spline copy their matrix from the host, so
+        # those frames run eagerly
+        self.captures = self.replays = self.eager_frames = 0
+        self._graphed = self.device.type == "cuda" and (
+            spectral_width_db is None or spectral_width_interp <= 1)
+        self._graphs: dict = {}
+        self._graph_pool = None
+        self._streams = None
+        if self._graphed:
+            self._input = torch.empty((2, profile.prt_per_frame, profile.point_prt),
+                                      dtype=COMPLEX, device=self.device)
+            self._frame_block = torch.empty(n_fft + 3, dtype=REAL, device=self.device)
+
+    def _frequency_terms(self, freq_index: int) -> tuple[float, int, np.ndarray]:
+        """``(delta_v, n_clutter, v_scale)`` of one frequency, in float64 as
+        the reference computes them in its frame loop (:315-327)."""
+        wavelength = C_LIGHT / freq_value(freq_index)
+        delta_v = wavelength * self._delta_doppler / 2.0
+        n_clutter = int(math.floor(self.chain.mtd_clutter_v / delta_v))
+        return delta_v, n_clutter, -wavelength * self._f_scale / 2.0  # (:326-327)
+
     def frame_params(self, freq_index: int, beam_pos: int) -> tuple[G0FrameParams, int]:
         """Frequency/beam-dependent scalars of one frame and its clutter-row
         count, computed on the host in float64 as the reference does in its
-        frame loop (:310-327,506-516)."""
+        frame loop (:310-327,506-516); ``v_scale`` is the frame's row of
+        ``frame_values``."""
         key = (int(freq_index), int(beam_pos))
         hit = self._params_cache.get(key)
         if hit is not None:
             return hit
-        table = angle_k_values(self.chain.sys_num)
-        n_freq, n_beam = table.shape
+        n_freq, n_beam = self._k_table.shape
         if not (0 <= key[0] < n_freq and 0 <= key[1] < n_beam):
             # agile mode feeds header fields here: a corrupt header must fail
             # loud, not wrap into the wrong table row
@@ -147,14 +281,11 @@ class G0Chain(nn.Module):
                 f"calibration tables ({n_freq} x {n_beam}); corrupt frame "
                 "header? pin --freq-index/--beam-pos to override"
             )
-        wavelength = C_LIGHT / freq_value(key[0])
-        delta_v = wavelength * self._delta_doppler / 2.0
-        n_clutter = int(math.floor(self.chain.mtd_clutter_v / delta_v))
-        v_scale = -wavelength * self._f_scale / 2.0  # (:326-327)
+        delta_v, n_clutter, _ = self._frequency_terms(key[0])
         params = G0FrameParams(
-            v_scale=torch.as_tensor(v_scale, dtype=REAL, device=self.device),
+            v_scale=self.frame_values[key[0] * n_beam + key[1], : self.chain.mtd_fft_length],
             delta_v=float(delta_v),
-            k_value=float(table[key[0], key[1]]),
+            k_value=float(self._k_table[key[0], key[1]]),
             beam_pos=key[1],
         )
         self._params_cache[key] = (params, n_clutter)
@@ -165,15 +296,20 @@ class G0Chain(nn.Module):
         return np.remainder(angle_code + self.chain.north_angle + self.chain.angle_e1, 360.0)
 
     # ------------------------------------------------------------------ core
-    def beams(self, left, right) -> torch.Tensor:
-        """(2, prt, point_prt) complex64 stack of the two beams on the device."""
-        def one(x):
+    def beams(self, left, right, out: torch.Tensor | None = None) -> torch.Tensor:
+        """(2, prt, point_prt) complex64 stack of the two beams on the device,
+        each beam one copy from the host; into ``out`` when given."""
+        shape = (self.profile.prt_per_frame, self.profile.point_prt)
+        if out is None:
+            out = torch.empty((2,) + shape, dtype=COMPLEX, device=self.device)
+        for dst, x in zip(out, (left, right)):
             if isinstance(x, np.ndarray):
                 x = torch.from_numpy(np.asarray(x, dtype=np.complex64))
+            if tuple(x.shape) != shape:
+                raise ValueError(f"a beam of {tuple(x.shape)} samples, not {shape}")
             with span("g0.h2d", "copy", x.numel() * x.element_size()):
-                return x.to(self.device, COMPLEX)
-
-        return torch.stack([one(left), one(right)])
+                dst.copy_(x)
+        return out
 
     def front(self, beams: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """B3 on each segment: per-beam |RDM| (2, mtd_fft, n) of the short and
@@ -216,39 +352,130 @@ class G0Chain(nn.Module):
 
         ``freq_index``/``beam_pos`` default to the chain's; pass the frame's
         own parsed ``freInd``/``beamPosNum`` for per-frame agility.
+
+        On the CPU, or where spectral widths are upsampled, the frame runs
+        eagerly.  Otherwise the beams are copied into a static input and the
+        rest is a CUDA graph keyed by the frame's ``n_clutter``: its first
+        frame runs eagerly on the capture stream, which builds what the
+        capture must find made (B3's operator images, B1's launch plans,
+        the tensor-map entry point); its second captures the graph; from
+        then on a frame copies its row of ``frame_values`` into the block
+        the graph reads, replays it and copies the outputs out.  Kernel
+        wrappers count their launches when called, so once per capture on
+        this path.  The result is the frame's own: no later frame writes it.
         """
         with span("g0.params", "launch"):
-            params, n_clutter = self.frame_params(
-                self.freq_index if freq_index is None else freq_index,
-                self.beam_pos if beam_pos is None else beam_pos,
-            )
-        beams = self.beams(left, right)
+            fi = self.freq_index if freq_index is None else freq_index
+            bp = self.beam_pos if beam_pos is None else beam_pos
+            _, n_clutter = self.frame_params(fi, bp)
+            values = self.frame_values[int(fi) * self._n_beams + int(bp)]
+        if not self._graphed:
+            self.eager_frames += 1
+            return self._frame_work(self.beams(left, right), n_clutter, values)
+        beams = self.beams(left, right, out=self._input)
+        if n_clutter not in self._graphs:
+            self._graphs[n_clutter] = None     # warmed up, not yet captured
+            self.eager_frames += 1
+            return self._warm_up(beams, n_clutter, values)
+        replay = self._graphs[n_clutter]
+        if replay is None:
+            with span("g0.capture", "launch"):
+                replay = self._graphs[n_clutter] = self._capture(n_clutter)
+            self.captures += 1
+        with span("g0.replay", "launch"):
+            self._frame_block.copy_(values)
+            replay.graph.replay()
+            self.replays += 1
+            return replay.result()
+
+    def _side_streams(self) -> tuple[torch.cuda.Stream, torch.cuda.Stream]:
+        """The capture stream, and the stream the short segment's branch
+        forks onto from it."""
+        if self._streams is None:
+            self._streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device))
+        return self._streams
+
+    def _warm_up(self, beams: torch.Tensor, n_clutter: int, values: torch.Tensor) -> G0FrameResult:
+        """The frame's device work, eagerly on the capture stream."""
+        main, (side, fork) = torch.cuda.current_stream(self.device), self._side_streams()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            result = self._frame_work(beams, n_clutter, values, fork)
+        main.wait_stream(side)
+        for t in _leaves(result):
+            if t is not None:
+                t.record_stream(main)   # the caller reads and frees it on ``main``
+        return result
+
+    def _capture(self, n_clutter: int) -> _Replay:
+        """The graph of the device work of a frame of ``n_clutter``, reading
+        the static input and frame block, writing one flat output block."""
+        images = tuple(prepared_operator_image(re, im) for re, im in (
+            (self.pc_short_re, self.pc_short_im), (self.pc_long_re, self.pc_long_im)))
+        side, fork = self._side_streams()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=side,
+                              capture_error_mode="thread_local"):
+            out, layout, skeleton = pack_result(
+                self._frame_work(self._input, n_clutter, self._frame_block, fork))
+        self._graph_pool = graph.pool()
+        return _Replay(graph, out, layout, skeleton, images)
+
+    def _frame_work(self, beams: torch.Tensor, n_clutter: int, values: torch.Tensor,
+                    fork: torch.cuda.Stream | None = None) -> G0FrameResult:
+        """Everything after the beams' copy: B3, sums and notch, B1, then per
+        segment top-k and the measurement, with the frame's ``values`` (a row
+        of ``frame_values``, or the block a graph reads) as device tensors.
+        With ``fork``, the short segment's top-k and measurement run on that
+        stream beside the long segment's, forked from the current stream and
+        joined back into it: the two chains of small kernels overlap, while
+        B3 and B1 keep the card to themselves."""
         with span("g0.front", "launch"):
-            abs_short, abs_long = self.front(beams)
-        del beams             # the stack is let go once B3 has been enqueued
+            rdms = self.front(beams)
         with span("g0.combine", "launch"):
-            sum_short = zero_velocity_notch_unshifted(abs_short[0] + abs_short[1], n_clutter)
-            sum_long = zero_velocity_notch_unshifted(abs_long[0] + abs_long[1], n_clutter)
-            diff_short = abs_short[1] - abs_short[0]
-            diff_long = abs_long[1] - abs_long[0]
-
-        cfar = self.profile.cfar
+            keep = self.notch_keep[n_clutter]
+            sums = [zero_velocity_notch_unshifted(a[0] + a[1], n_clutter, keep) for a in rdms]
+            diffs = [a[1] - a[0] for a in rdms]
         with span("g0.cfar", "launch"):
-            flags_s, vflags_s = cascaded_cfar2d(sum_short, cfar, n_clutter)
-            flags_l, vflags_l = cascaded_cfar2d(sum_long, cfar, n_clutter)
-        with span("g0.extract", "launch"):
-            dets_s = extract_detections(flags_s, sum_short, self.max_detections)
-            dets_l = extract_detections(flags_l, sum_long, self.max_detections)
+            flags = [cascaded_cfar2d(s, self.profile.cfar, n_clutter) for s in sums]
+        if fork is None:
+            dets_s, meas_s = self._measure(sums[0], diffs[0], flags[0][0], 0, n_clutter, values)
+        else:
+            main = torch.cuda.current_stream(self.device)
+            fork.wait_stream(main)
+            with torch.cuda.stream(fork):
+                dets_s, meas_s = self._measure(sums[0], diffs[0], flags[0][0], 0, n_clutter,
+                                               values)
+        dets_l, meas_l = self._measure(sums[1], diffs[1], flags[1][0], 1, n_clutter, values)
+        if fork is not None:
+            main.wait_stream(fork)
+        return G0FrameResult(
+            rdm_sum_short=sums[0], rdm_sum_long=sums[1],
+            rdm_diff_short=diffs[0], rdm_diff_long=diffs[1],
+            flags_short=flags[0][0], flags_long=flags[1][0],
+            vflags_short=flags[0][1], vflags_long=flags[1][1],
+            detections_short=dets_s, detections_long=dets_l,
+            measurements_short=meas_s, measurements_long=meas_l,
+        )
 
-        chain = self.chain
+    def _measure(self, rdm_sum: torch.Tensor, rdm_diff: torch.Tensor, flags: torch.Tensor,
+                 segment: int, n_clutter: int,
+                 values: torch.Tensor) -> tuple[DetectionList, Measurements]:
+        """One segment's detection list and measurements."""
+        n_fft, chain = self.chain.mtd_fft_length, self.chain
+        with span("g0.extract", "launch"):
+            dets = extract_detections(flags, rdm_sum, self.max_detections)
         with span("g0.measure", "launch"):
-            common = dict(
+            meas = motion_parameters(
+                rdm_sum, rdm_diff, dets,
+                r_scale=self.r_scale_long if segment else self.r_scale_short,
                 delta_r=self.profile.delta_r,
-                v_scale=params.v_scale,
-                delta_v=params.delta_v,
-                k_value=params.k_value,
-                beam_pos=params.beam_pos,
+                v_scale=values[:n_fft],
+                delta_v=values[n_fft],
+                k_value=values[n_fft + 1],
+                beam_pos=None,
                 beam_angle_step=chain.beam_angle_step,
+                beam_elevation=values[n_fft + 2],
                 n_clutter=n_clutter,
                 extra_dots=chain.extra_dots,
                 r_interp=chain.r_interp_times,
@@ -258,16 +485,6 @@ class G0Chain(nn.Module):
                 spectral_width_db=self.spectral_width_db,
                 spectral_width_shifted=False,
                 spectral_width_interp=self.spectral_width_interp,
+                splines=self.splines,
             )
-            meas_s = motion_parameters(sum_short, diff_short, dets_s,
-                                       r_scale=self.r_scale_short, **common)
-            meas_l = motion_parameters(sum_long, diff_long, dets_l,
-                                       r_scale=self.r_scale_long, **common)
-        return G0FrameResult(
-            rdm_sum_short=sum_short, rdm_sum_long=sum_long,
-            rdm_diff_short=diff_short, rdm_diff_long=diff_long,
-            flags_short=flags_s, flags_long=flags_l,
-            vflags_short=vflags_s, vflags_long=vflags_l,
-            detections_short=dets_s, detections_long=dets_l,
-            measurements_short=meas_s, measurements_long=meas_l,
-        )
+        return dets, meas

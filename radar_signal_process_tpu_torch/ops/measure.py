@@ -121,9 +121,9 @@ def motion_parameters(
     r_scale: torch.Tensor,
     delta_r: float,
     v_scale: torch.Tensor,
-    delta_v: float,
-    k_value: float,
-    beam_pos: int,
+    delta_v: float | torch.Tensor,
+    k_value: float | torch.Tensor,
+    beam_pos: int | None,
     beam_angle_step: float,
     n_clutter: int,
     extra_dots: int = 2,
@@ -134,6 +134,8 @@ def motion_parameters(
     spectral_width_db: float | None = None,
     spectral_width_shifted: bool = True,
     spectral_width_interp: int = 1,
+    beam_elevation: float | torch.Tensor | None = None,
+    splines: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> Measurements:
     """Per-detection sub-bin range/velocity/elevation estimates.
 
@@ -145,12 +147,23 @@ def motion_parameters(
     ``spectral_width_db`` adds each detection's Doppler spectral width
     (:func:`radar_signal_process_tpu_torch.ops.spectrum.detection_spectral_widths`);
     ``spectral_width_shifted=False`` marks unshifted (G0) spectra.
+
+    ``delta_v``, ``k_value`` and ``beam_elevation`` (the beam's axis,
+    ``beam_pos * beam_angle_step + 2.5``, computed here when None; where it
+    is given, ``beam_pos`` and ``beam_angle_step`` are not read) may be
+    0-dim float32 tensors on the RDM's device holding the value a Python
+    float becomes in a float32 operation: the results are the same bits, and
+    a captured CUDA graph reads each frame's values from them.  ``splines``
+    is ``(P_r, P_v)``, :func:`spline_eval_matrix` of the range and velocity
+    windows made once on the RDM's device and dtype; made here when None.
     """
     nv, nr = rdm_sum.shape
     w = 2 * extra_dots + 1
     dt, dev = rdm_sum.dtype, rdm_sum.device
-    p_r = torch.as_tensor(spline_eval_matrix(w, r_interp), dtype=dt, device=dev)
-    p_v = torch.as_tensor(spline_eval_matrix(w, v_interp), dtype=dt, device=dev)
+    if splines is None:
+        splines = (torch.as_tensor(spline_eval_matrix(w, r_interp), dtype=dt, device=dev),
+                   torch.as_tensor(spline_eval_matrix(w, v_interp), dtype=dt, device=dev))
+    p_r, p_v = splines
     r_scale = torch.as_tensor(r_scale, dtype=dt, device=dev)
     v_scale = torch.as_tensor(v_scale, dtype=dt, device=dev)
     v = detections.v_idx.long()
@@ -177,13 +190,9 @@ def motion_parameters(
 
     # monopulse elevation (motionParaMeasure.m:75-82)
     amp_ratio = rdm_diff[v, r] / rdm_sum[v, r]
-    ele = (
-        beam_pos * beam_angle_step
-        + 2.5
-        - amp_ratio * k_value
-        + ele_angle_comp
-        + ele_angle_sys_err
-    )
+    if beam_elevation is None:
+        beam_elevation = beam_pos * beam_angle_step + 2.5
+    ele = beam_elevation - amp_ratio * k_value + ele_angle_comp + ele_angle_sys_err
     width = None
     if spectral_width_db is not None:
         from radar_signal_process_tpu_torch.ops.spectrum import detection_spectral_widths

@@ -112,16 +112,21 @@ def zero_velocity_notch(rdm: torch.Tensor, divisor: int = 150) -> torch.Tensor:
     return rdm * mask[:, None]
 
 
-def zero_velocity_notch_unshifted(rdm: torch.Tensor, n_clutter: int) -> torch.Tensor:
+def zero_velocity_notch_unshifted(
+    rdm: torch.Tensor, n_clutter: int, keep: torch.Tensor | None = None
+) -> torch.Tensor:
     """G0 clutter zeroing on an unshifted spectrum (velocity axis -2).
 
     Zeroes rows ``[0 : n_clutter+1]`` and ``[N-n_clutter : N]`` (0-based),
     ``zeroSetFlagMTD = [1:MTD_0_num+1, mtd_FFT_num-MTD_0_num+1 : mtd_FFT_num]``.
+    ``keep`` is :func:`notch_mask_unshifted` made once on ``rdm``'s device
+    and dtype (so nothing is copied from the host); made here when None.
     """
-    mask = torch.as_tensor(
-        notch_mask_unshifted(rdm.shape[-2], n_clutter), dtype=rdm.dtype, device=rdm.device
-    )
-    return rdm * mask[:, None]
+    if keep is None:
+        keep = torch.as_tensor(
+            notch_mask_unshifted(rdm.shape[-2], n_clutter), dtype=rdm.dtype, device=rdm.device
+        )
+    return rdm * keep[:, None]
 
 
 def notch_mask_unshifted(n: int, n_clutter: int) -> np.ndarray:

@@ -719,6 +719,120 @@ def test_g0_chain_on_card_matches_cpu(tmp_path, rng, cuda_device):
         assert abs(float(m.range_m[0]) - r_true) < 2 * prof.delta_r
 
 
+def _g0_frames(rng, n):
+    """``n`` G0 frames (left, right): a target at long cell 100 and short
+    cell 20, 30 Doppler bins off zero, in fresh noise each."""
+    from radar_signal_process_tpu_torch.config import G0ChainConfig
+    from radar_signal_process_tpu_torch.ops.waveforms import reference_pulses
+
+    prof = G0_PROFILE
+    rows = prof.prt_per_frame
+    p_short, p_long = reference_pulses(prof)
+    ramp = np.exp(1j * 2 * np.pi * (-30 / G0ChainConfig().mtd_fft_length) * np.arange(rows))
+    base = np.zeros((rows, prof.point_prt), complex)
+    s0, s1 = prof.segment_starts
+    base[:, s0 + 20 : s0 + 20 + len(p_short)] += ramp[:, None] * p_short[None, :]
+    base[:, s1 + 100 : s1 + 100 + len(p_long)] += ramp[:, None] * p_long[None, :]
+    for _ in range(n):
+        noise = rng.standard_normal((2, 2, rows, prof.point_prt)) * 20.0
+        yield tuple((gain * 500 * base + noise[i, 0] + 1j * noise[i, 1]).astype(np.complex64)
+                    for i, gain in enumerate((1.0, 0.8)))
+
+
+def _g0_tensors(res):
+    from radar_signal_process_tpu_torch.models.g0_chain import _leaves
+
+    return [t for t in _leaves(res) if t is not None]
+
+
+def _g0_chains(cuda_device, cfg=None):
+    """A chain on the graph path and one held to eager frames on the card."""
+    from radar_signal_process_tpu_torch.config import G0ChainConfig
+    from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
+
+    cfg = cfg or G0ChainConfig()
+    graphed = G0Chain(G0_PROFILE, cfg, device=cuda_device)
+    eager = G0Chain(G0_PROFILE, cfg, device=cuda_device)
+    eager._graphed = False
+    return graphed, eager
+
+
+@pytest.mark.gpu
+def test_g0_chain_graph_equals_eager_on_card(rng, cuda_device):
+    """Every frequency of the 11-point plan at two beam positions: each
+    frame of the graph path (eager first frame, capture, replays) gives the
+    eager path's RDMs, flags, detection lists and measurements bit for bit."""
+    graphed, eager = _g0_chains(cuda_device)
+    plan = [(fi, bp) for fi in range(11) for bp in (2, 9)]
+    for (fi, bp), (left, right) in zip(plan, _g0_frames(rng, len(plan))):
+        got = graphed.process_frame(left, right, freq_index=fi, beam_pos=bp)
+        want = eager.process_frame(left, right, freq_index=fi, beam_pos=bp)
+        assert got.measurements_long.spectral_width is None
+        for a, b in zip(_g0_tensors(got), _g0_tensors(want), strict=True):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (fi, bp)
+        assert bool(got.measurements_long.valid.any())
+    assert graphed.replays == len(plan) - 1 and graphed.eager_frames == 1
+
+
+@pytest.mark.gpu
+def test_g0_chain_graph_results_outlive_later_frames(rng, cuda_device):
+    """A result held from frame n is unchanged after frames n+1 to n+3."""
+    graphed, _ = _g0_chains(cuda_device)
+    frames = list(_g0_frames(rng, 6))
+    held = []
+    for k, (left, right) in enumerate(frames):
+        res = graphed.process_frame(left, right, freq_index=k % 11, beam_pos=k % 12)
+        held.append((res, [t.clone() for t in _g0_tensors(res)]))
+    torch.cuda.synchronize()
+    for res, copy in held:
+        assert all(torch.equal(a, b) for a, b in zip(_g0_tensors(res), copy, strict=True))
+    assert graphed.replays == 5
+
+
+@pytest.mark.gpu
+def test_g0_chain_graph_counts_one_capture_per_key(rng, cuda_device):
+    """A clutter velocity at which the plan's frequencies give two
+    ``n_clutter``: one eager frame and one capture each, then only replays."""
+    from radar_signal_process_tpu_torch.config import G0ChainConfig
+
+    graphed, eager = _g0_chains(cuda_device, G0ChainConfig(mtd_clutter_v=0.9))
+    plan = [0, 10, 1, 9, 2, 8, 5, 10, 0]
+    keys = [graphed.frame_params(fi, 0)[1] for fi in plan]
+    assert len(set(keys)) == 2
+    for k, (fi, (left, right)) in enumerate(zip(plan, _g0_frames(rng, len(plan)))):
+        got = graphed.process_frame(left, right, freq_index=fi, beam_pos=4)
+        want = eager.process_frame(left, right, freq_index=fi, beam_pos=4)
+        for a, b in zip(_g0_tensors(got), _g0_tensors(want), strict=True):
+            assert torch.equal(a, b), (k, fi)
+    assert graphed.captures == graphed.eager_frames == 2
+    assert graphed.replays == len(plan) - 2
+
+
+@pytest.mark.gpu
+def test_g0_chain_replay_makes_no_hidden_sync(rng, cuda_device):
+    """Everything after the beams' copy of a replayed frame runs with
+    ``torch.cuda.set_sync_debug_mode("error")``: no hidden sync."""
+    graphed, eager = _g0_chains(cuda_device)
+    frames = list(_g0_frames(rng, 3))
+    for left, right in frames[:2]:
+        graphed.process_frame(left, right, freq_index=4, beam_pos=1)
+    copy_beams = graphed.beams
+
+    def beams(*args, **kwargs):
+        out = copy_beams(*args, **kwargs)
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    graphed.beams = beams
+    try:
+        got = graphed.process_frame(*frames[2], freq_index=7, beam_pos=3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert graphed.replays == 2 and graphed.captures == 1
+    want = eager.process_frame(*frames[2], freq_index=7, beam_pos=3)
+    assert all(torch.equal(a, b) for a, b in zip(_g0_tensors(got), _g0_tensors(want)))
+
+
 # ---------------------------------------------- the detection-quality path
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 1536, 868), (1, 332, 3404), (4, 332, 3404)],
