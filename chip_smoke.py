@@ -643,7 +643,9 @@ def phase_slice(dev) -> dict:
             fail(f"slice: cli stream rc {rc}, {len(stamps)} windows (want 3)")
         if min(launches.values()) < 1:
             fail(f"slice: a kernel did not run on the main path: {launches}")
-        if launches["cascaded_cfar2d"] != len(stamps):   # one B1 call per window
+        # one B1 call a window until the second window captures the window's
+        # CUDA graph; later windows replay it
+        if launches["cascaded_cfar2d"] != min(len(stamps), 2):
             fail(f"slice: {launches['cascaded_cfar2d']} B1 launches for {len(stamps)} windows")
         if not all(all(w) for w in found):
             fail(f"slice: target not detected in beam {beam} in every slice: {found}")

@@ -21,8 +21,8 @@ subcommand of ``radar_signal_process_tpu.cli`` prints; the chains run on
   the frame processor (B2) and the detector (B1), detections of every
   (beam, slice) as JSON;
 * ``stream`` runs :class:`models.streaming.StreamingPipeline` over a G2
-  capture: per window its latency, CFAR hits and detections per beam, then
-  the pipeline counters;
+  capture, or a G1 capture's two beams: per window its latency, CFAR hits
+  and detections per beam, then the pipeline counters;
 * ``dmx`` runs :class:`models.g0_chain.G0Chain` over a G1-format dual-beam
   capture, per-frame measurements, optionally against a GPS track, with
   estimate plots and a ``resultData_<clock>.mat``;
@@ -817,18 +817,22 @@ def cmd_sweep(args, on_result: Optional[Callable] = None) -> int:
 
 def cmd_stream(args, on_result: Optional[Callable] = None) -> int:
     """Streaming chain: overlapped host ingest + device compute, all-beam
-    detection.  ``on_result`` (if given) sees every ``StreamResult``."""
+    detection.  A G2 capture is beamformed with ``--dbf-coeffs``; a G1
+    capture (24-bit packed, 10 frames a file) streams its two beams, its
+    compressed columns re-concatenated 1031 -> 868 (``config.range_concat``).
+    ``on_result`` (if given) sees every ``StreamResult``."""
     from radar_signal_process_tpu_torch.device import resolve_device
-    from radar_signal_process_tpu_torch.ingest import g2_reader_class
-    from radar_signal_process_tpu_torch.models.streaming import StreamingPipeline
+    from radar_signal_process_tpu_torch.ingest import g1_reader_class, g2_reader_class
+    from radar_signal_process_tpu_torch.models.streaming import StreamingPipeline, TwoBeamReader
     from radar_signal_process_tpu_torch.ops.dbf import load_dbf_coeffs
 
     profile = PROFILES[args.profile]
     if profile.bytes_head != 64:
-        raise SystemExit(
-            f"stream supports G2-format captures only (profile {profile.name})"
-        )
-    reader_cls = g2_reader_class(args.native)
+        # G1-format captures: the 24-bit packed dual-beam reader
+        reader = TwoBeamReader(g1_reader_class(args.native)(
+            args.input, prt_num=profile.prt_per_frame, point_prt=profile.point_prt))
+    else:
+        reader = g2_reader_class(args.native)(args.input, profile)
     coeffs = None
     if args.dbf_coeffs:
         coeffs = load_dbf_coeffs(args.dbf_coeffs, profile.n_channels)
@@ -836,7 +840,7 @@ def cmd_stream(args, on_result: Optional[Callable] = None) -> int:
     device = resolve_device(args.device)
     with _mesh_of(args, device) as mesh:
         pipe = StreamingPipeline(
-            reader_cls(args.input, profile),
+            reader,
             profile,
             win_size=args.win_size,
             max_frames=args.frames,
@@ -1152,7 +1156,8 @@ def build_parser() -> argparse.ArgumentParser:
     e2e.set_defaults(fn=cmd_e2e)
 
     st = sub.add_parser("stream", help="streaming chain: overlapped ingest + "
-                                       "compute with all-beam detection")
+                                       "compute with all-beam detection (G2 captures, "
+                                       "or G1's two beams with --profile G1)")
     st.add_argument("--input", required=True)
     st.add_argument("--profile", default="G2", choices=PROFILES)
     st.add_argument("--frames", type=int, default=10)

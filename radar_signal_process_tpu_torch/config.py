@@ -234,6 +234,28 @@ G1_RANGE_CONCAT: Tuple[Tuple[int, int, int], ...] = (
     (318, 868, 481),     # long: dst 319:868 <- src 482:1031 (325+(82+235-160) = 482 1-based)
 )
 
+# The stream's range re-concatenation after pulse compression, by profile
+# name: G1's windows drop the overlapping samples as its CPI does
+# (main.m:210-211).  A profile without an entry keeps every column.  The
+# tables stand apart from RadarProfile, whose fields are the JAX package's
+# (stage files carry them).
+RANGE_CONCAT = {"G1": G1_RANGE_CONCAT}
+
+
+def range_concat(profile: RadarProfile) -> Tuple[Tuple[int, int, int], ...]:
+    """``profile``'s entry of :data:`RANGE_CONCAT`, () for none.  Raises
+    where the table's destination has a gap or its source reads past the
+    profile's samples."""
+    spec = tuple(RANGE_CONCAT.get(profile.name, ()))
+    stop = 0
+    for dst_start, dst_stop, src in spec:
+        if dst_start != stop or dst_stop <= dst_start or src < 0 \
+                or src + dst_stop - dst_start > profile.point_prt:
+            raise ValueError(f"range re-concatenation {spec} does not fit profile "
+                             f"{profile.name} ({profile.point_prt} samples)")
+        stop = dst_stop
+    return spec
+
 # --------------------------------------------------------------------------- G0
 # 2018 "DMX 6 km mode", dual beam sum/diff monopulse.
 # Parameters: CFAR_WangCai/DMX_SignalProcessing_main_xzr.m:94-127.

@@ -53,7 +53,10 @@ from radar_signal_process_tpu_torch.models.detect import (
 from radar_signal_process_tpu_torch.models.mtd_pipeline import _form_rdm, slice_cpi_window
 from radar_signal_process_tpu_torch.ops.measure import DetectionList, extract_detections
 from radar_signal_process_tpu_torch.ops.mtd import istc_compensate, mti_cancel
-from radar_signal_process_tpu_torch.ops.pulse_compression import segmented_pulse_compression
+from radar_signal_process_tpu_torch.ops.pulse_compression import (
+    range_concatenate,
+    segmented_pulse_compression,
+)
 from radar_signal_process_tpu_torch.params import chain_params
 
 EMIT_MODES = ("detections", "flags", "full")
@@ -72,7 +75,7 @@ def _frame_probe(frame: torch.Tensor) -> torch.Tensor:
 
 
 def _make_block_rdms(profile: RadarProfile, win_size: int, stc_curve_db, pulses,
-                     device: torch.device):
+                     device: torch.device, concat=()):
     """``rdms_of(frames, carry=None) -> (rdms, last)``: K+1 frames
     (n_beams, n_prt, n_pts) complex64 -> the (K, n_beams, win_size, n_prt,
     n_pts) RDMs of their K windows, and the last frame compressed.
@@ -80,9 +83,10 @@ def _make_block_rdms(profile: RadarProfile, win_size: int, stc_curve_db, pulses,
     ``frames[0]`` must be a tensor; later entries may be callables that
     return one.  ``carry`` is ``frames[0]`` compressed, which then is not
     compressed again.  Each frame is compressed once (iSTC first, when the
-    profile asks for it) and copied into one joined buffer; its raw tensor
-    and its compressed tensor are dropped at once, the last compressed frame
-    excepted.
+    profile asks for it), re-concatenated by ``concat`` where given (then
+    ``n_pts`` is the table's width) and copied into one joined buffer; its
+    raw tensor and its compressed tensor are dropped at once, the last
+    compressed frame excepted.
     """
     params = chain_params(profile, pulses=pulses, stc_curve_db=stc_curve_db, device=device)
     use_stc = profile.mtd.istc and params.stc_gain is not None
@@ -90,14 +94,16 @@ def _make_block_rdms(profile: RadarProfile, win_size: int, stc_curve_db, pulses,
     def compress(frame: torch.Tensor) -> torch.Tensor:
         if use_stc:
             frame = istc_compensate(frame, params.stc_gain)
-        return segmented_pulse_compression(frame, profile, params.pc_spectra,
-                                           params.pc_filter_lens)
+        pc = segmented_pulse_compression(frame, profile, params.pc_spectra,
+                                         params.pc_filter_lens)
+        return range_concatenate(pc, concat) if concat else pc
 
     def rdms_of(frames, carry: Optional[torch.Tensor] = None):
         frames = list(frames)
         if not isinstance(frames[0], torch.Tensor):
             raise ValueError("frames[0] must be a tensor")
-        n_beams, n, n_pts = frames[0].shape
+        n_beams, n = frames[0].shape[:2]
+        n_pts = concat[-1][1] if concat else frames[0].shape[-1]
         joined = torch.empty((n_beams, len(frames) * n, n_pts), dtype=COMPLEX, device=device)
         for i in range(len(frames)):
             if i == 0 and carry is not None:
@@ -151,6 +157,7 @@ def make_stream_pipeline(
     pulses=None,
     emit: str = "full",
     device: str | torch.device = "cuda",
+    concat=(),
 ):
     """Block runner: ``run(frames, emit_cb, carry=None) -> last``.
 
@@ -168,14 +175,15 @@ def make_stream_pipeline(
 
     ``carry`` is ``frames[0]`` compressed (the ``last`` of the previous
     block), so a stream compresses every frame exactly once; ``last`` is
-    the last frame compressed.  On a CPU ``device`` the CFAR is the native
-    cascade, or the split form where it cannot be built
+    the last frame compressed, its columns re-concatenated by ``concat``
+    (``config.range_concat``) where given.  On a CPU ``device`` the CFAR is
+    the native cascade, or the split form where it cannot be built
     (``make_cascade_detector``, transposed layout).
     """
     if emit not in EMIT_MODES:
         raise ValueError(f"emit must be one of {EMIT_MODES}, got {emit!r}")
     device = resolve_device(device)
-    rdms_of = _make_block_rdms(profile, win_size, stc_curve_db, pulses, device)
+    rdms_of = _make_block_rdms(profile, win_size, stc_curve_db, pulses, device, concat)
     detect = make_cascade_detector(profile, n_clutter, cfg=cfg, renotch_divisor=renotch_divisor,
                                    transposed=True, device=device)
 

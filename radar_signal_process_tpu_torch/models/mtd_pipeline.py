@@ -28,6 +28,7 @@ from radar_signal_process_tpu_torch.ops.mtd import (
     stc_gain,
 )
 from radar_signal_process_tpu_torch.ops.pulse_compression import (
+    range_concatenate,
     segmented_pulse_compression,
 )
 from radar_signal_process_tpu_torch.params import ChainParams, chain_params, cpi_params
@@ -85,14 +86,17 @@ def mtd_produce(
 
 
 def mtd_window_produce(
-    echo_win: torch.Tensor, profile: RadarProfile, params, win_size: int = 4
+    echo_win: torch.Tensor, profile: RadarProfile, params, win_size: int = 4,
+    concat: Tuple[Tuple[int, int, int], ...] = (),
 ) -> torch.Tensor:
     """Doubled-CPI window (..., 2*n_prt, n_pts) -> (..., win_size, n_prt, n_pts) RDMs.
 
     Pulse compression (and iSTC) run per PRT row, so they run once on the
     doubled window before slicing; MTI, the Doppler transform and the notch
     stay per slice.  ``params`` is a :class:`ChainParams` or a module
-    holding the same buffers (:class:`FrameProcessor`).
+    holding the same buffers (:class:`FrameProcessor`).  ``concat`` (a
+    ``config.range_concat`` table) re-concatenates the compressed range
+    columns before slicing, so ``n_pts`` becomes the table's width.
     """
     with span("mtd.pc", "launch"):
         if profile.mtd.istc and params.stc_gain is not None:
@@ -100,6 +104,9 @@ def mtd_window_produce(
         pc_win = segmented_pulse_compression(
             echo_win, profile, params.pc_spectra, params.pc_filter_lens
         )
+    if concat:
+        with span("mtd.concat", "launch"):
+            pc_win = range_concatenate(pc_win, concat)
     with span("mtd.slice", "launch"):
         pc = slice_cpi_window(pc_win, win_size)
     with span("mtd.rdm", "launch"):
@@ -113,15 +120,18 @@ class FrameProcessor(nn.Module):
 
     ``forward(frame_now, frame_next)`` maps two (n_beams, n_prt, point_prt)
     complex64 frames to the (n_beams, win_size, n_prt, point_prt) float32
-    RDM stack (``main_produce_dataset_win_xzr_v2.m:109-148``).  The window,
-    the DFT plane, the pulse-compression spectra and the iSTC gain are
-    buffers.
+    RDM stack (``main_produce_dataset_win_xzr_v2.m:109-148``), its columns
+    re-concatenated by ``concat`` (``config.range_concat``) where given.
+    The window, the DFT plane, the pulse-compression spectra and the iSTC
+    gain are buffers.
     """
 
-    def __init__(self, profile: RadarProfile, params: ChainParams, win_size: int = 4):
+    def __init__(self, profile: RadarProfile, params: ChainParams, win_size: int = 4,
+                 concat: Tuple[Tuple[int, int, int], ...] = ()):
         super().__init__()
         self.profile = profile
         self.win_size = win_size
+        self.concat = concat
         self.pc_filter_lens = params.pc_filter_lens
         self.register_buffer("window", params.window)
         self.register_buffer("dft_re", params.dft_re)
@@ -137,8 +147,12 @@ class FrameProcessor(nn.Module):
         )
 
     def forward(self, frame_now: torch.Tensor, frame_next: torch.Tensor) -> torch.Tensor:
-        window = torch.cat([frame_now, frame_next], dim=-2)
-        return mtd_window_produce(window, self.profile, self, self.win_size)
+        return self.produce(torch.cat([frame_now, frame_next], dim=-2))
+
+    def produce(self, window: torch.Tensor) -> torch.Tensor:
+        """The doubled-CPI window (n_beams, 2*n_prt, point_prt) of a frame
+        pair, joined already -> its RDM stack."""
+        return mtd_window_produce(window, self.profile, self, self.win_size, self.concat)
 
 
 def make_frame_processor(

@@ -2,16 +2,21 @@
 
 Port of ``radar_signal_process_tpu/models/streaming.py``.  A background
 thread parses ``.bin`` frames and stages each into pinned host memory while
-the device processes earlier frames.  The consumer copies a frame to the
-device on the current stream and beamforms it there when DBF coefficients
-are given.  All device work is issued on one stream, so no cross-stream
-events are needed; the pinned copy makes the host-to-device transfer
-asynchronous.  Two consumers:
+the device processes earlier frames: a G2 frame as it is parsed, a G1
+frame's two beams side by side in one block (:class:`TwoBeamReader`).  The
+consumer copies a frame to the device on the current stream and beamforms
+it there when DBF coefficients are given.  A window's device work is issued
+on that one stream (a graph replays there too), so no cross-stream events
+are needed; the pinned copy makes the host-to-device transfer asynchronous.
+Two consumers:
 
 * the windowed path pairs each frame with the previous one into a
   doubled-CPI window (``main_produce_dataset_win_xzr_v2.m:75-103``) and runs
   the frame processor and the detector over every (beam, slice) RDM
-  (``main_cfar.m:85-96``): the JAX device path, and the port's on the card;
+  (``main_cfar.m:85-96``): the JAX device path, and the port's on the card,
+  where a window's work after the join is replayed as one CUDA graph
+  (:class:`_WindowGraph`; its first window and its capture run on a side
+  stream, ordered against the consumer's by stream waits);
 * the block path (the JAX package's CPU path, and the port's on the CPU)
   gathers K+1 consecutive frames and runs them through
   ``models.host_parallel.make_stream_pipeline``: each frame compressed
@@ -36,7 +41,7 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
-from radar_signal_process_tpu_torch.config import RadarProfile
+from radar_signal_process_tpu_torch.config import RadarProfile, range_concat
 from radar_signal_process_tpu_torch.device import resolve_device
 from radar_signal_process_tpu_torch.models.detect import RENOTCH_DIVISOR, Detector, clutter_cells
 from radar_signal_process_tpu_torch.models.host_parallel import EMIT_MODES, make_stream_pipeline
@@ -62,13 +67,116 @@ class StreamResult(NamedTuple):
     cfar_hits: int = 0  # total cascade flags across the window
 
 
+class BeamFrame(NamedTuple):
+    """A frame read as its beams, each (prt, samples): staged side by side,
+    with no DBF; ``frame_completed`` False past the end of the capture."""
+
+    beams: tuple
+    frame_completed: bool = True
+
+
+class TwoBeamReader:
+    """A G1-format reader (``ingest.g1_reader_class``: frames counted from
+    1, ``read_frame -> (left, right, angles, meta)``) as a stream's reader:
+    frames counted from 0, each a :class:`BeamFrame` of its two beams, and
+    an incomplete one past the end of the capture, where the reader raises
+    on the missing file or the short read (``cli ingest`` ends a G1 capture
+    there too)."""
+
+    def __init__(self, reader):
+        self.reader = reader
+
+    def read_frame(self, idx: int) -> BeamFrame:
+        try:
+            left, right, _, _ = self.reader.read_frame(idx + 1)
+        except (OSError, EOFError):
+            return BeamFrame((), False)
+        return BeamFrame((left, right))
+
+
+class _WindowGraph:
+    """The windowed path's device work on a card, replayed as one CUDA graph.
+
+    A window's two staged frames are joined into a static window (the frame
+    processor's ``torch.cat``); the graph runs the frame processor and the
+    detector on it and counts the window's flags.  The first window runs
+    eagerly on the capture stream, which builds what the capture must find
+    made (cuFFT plans, the kernels, B1's launch plans); the second captures
+    the graph; from then on a window replays it.  Kernel wrappers count
+    their launches when called, so once per capture on this path.  A
+    replayed window returns copies of the stacks that ``emit`` keeps, and of
+    its detection list, which no later window writes.
+    """
+
+    def __init__(self, processor: FrameProcessor, detector: Detector, emit: str):
+        self.processor, self.detector = processor, detector
+        self.keep_rdms, self.keep_flags = emit == "full", emit != "detections"
+        self.window: Optional[torch.Tensor] = None
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[tuple] = None
+
+    def _work(self) -> tuple:
+        rdms = self.processor.produce(self.window)
+        flags, _, dets = self.detector(rdms)
+        return rdms, flags, dets, flags.sum()
+
+    def __call__(self, prev: torch.Tensor, cur: torch.Tensor) -> tuple:
+        """``(rdms, flags, dets, hits)`` of the window ``(prev, cur)``; the
+        stacks None where ``emit`` drops them."""
+        if self.graph is None and self.out is None:
+            return self._first(prev, cur)
+        if self.graph is None:
+            torch.cat([prev, cur], dim=-2, out=self.window)
+            with span("stream.capture", "launch"):
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph, stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    self.out = self._work()
+            with span("stream.replay", "launch"):
+                copies = self._replay()
+        else:
+            with span("stream.replay", "launch"):
+                torch.cat([prev, cur], dim=-2, out=self.window)
+                copies = self._replay()
+        return (*copies, int(self.out[3]))
+
+    def _replay(self) -> tuple:
+        """Replay the graph; copies of its stacks that ``emit`` keeps and of
+        its detection list, which no later replay writes."""
+        self.graph.replay()
+        rdms, flags, dets, _ = self.out
+        return (rdms.clone() if self.keep_rdms else None,
+                flags.clone() if self.keep_flags else None,
+                type(dets)(*(t.clone() for t in dets)))
+
+    def _first(self, prev: torch.Tensor, cur: torch.Tensor) -> tuple:
+        """The first window, eagerly on the capture stream."""
+        self.window = torch.empty(prev.shape[:-2] + (2 * prev.shape[-2], prev.shape[-1]),
+                                  dtype=prev.dtype, device=prev.device)
+        self.stream = torch.cuda.Stream(prev.device)
+        torch.cat([prev, cur], dim=-2, out=self.window)
+        main = torch.cuda.current_stream(prev.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            self.out = rdms, flags, dets, hits = self._work()
+        main.wait_stream(self.stream)
+        for t in (rdms, flags, hits, *dets):
+            t.record_stream(main)       # the caller reads and frees them on ``main``
+        return (rdms if self.keep_rdms else None, flags if self.keep_flags else None, dets,
+                int(hits))
+
+
 class StreamingPipeline:
     """Iterate detection results over a continuous capture.
 
     ``reader`` is any object with ``read_frame(idx) -> FrameResult``
     (``radar_signal_process_tpu_torch.ingest.G2FrameReader`` or
-    ``NativeG2FrameReader``).  ``emit`` selects what each
-    :class:`StreamResult` carries: ``"full"`` (RDM + flag stacks),
+    ``NativeG2FrameReader``), or a :class:`TwoBeamReader` over a G1-format
+    reader, whose :class:`BeamFrame` frames are their two beams (no DBF).
+    A profile with a ``config.range_concat`` table (G1) has its compressed
+    columns re-concatenated before the windows are sliced.  ``emit`` selects
+    what each :class:`StreamResult` carries: ``"full"`` (RDM + flag stacks),
     ``"flags"`` (no RDMs) or ``"detections"`` (neither).  ``device`` is
     where the chain runs; a CUDA device that is absent raises.
     ``stc_curve_db`` (used when ``profile.mtd.istc`` is set) and ``pulses``
@@ -122,25 +230,32 @@ class StreamingPipeline:
                               stc_curve_db=stc_curve_db, device=self.device)
         self._dbf = params.dbf
         n_clutter = clutter_cells(profile, profile.prt_per_frame, clutter_v)
+        concat = range_concat(profile)
         self._mesh = mesh
         if use_host_parallel is None:
             use_host_parallel = self.device.type == "cpu"
         self._block_runner = None
         queue_depth = 2       # the windowed producer stays a frame ahead
         if mesh is not None:
+            if concat:
+                raise ValueError(f"the mesh stream has no range re-concatenation "
+                                 f"(profile {profile.name})")
             self._init_mesh(mesh, n_clutter, win_size, max_detections, stc_curve_db, pulses)
         elif use_host_parallel:
             self._block_runner = make_stream_pipeline(
                 profile, win_size, n_clutter, max_detections=max_detections,
                 stc_curve_db=stc_curve_db, pulses=pulses, emit=emit, device=self.device,
+                concat=concat,
             )
             self._block_windows = block_windows
             # the producer stays a block ahead: the next block's frames are
             # parsed while the current one runs
             queue_depth = block_windows + 1
         else:
-            self._processor = FrameProcessor(profile, params, win_size)
+            self._processor = FrameProcessor(profile, params, win_size, concat)
             self._detector = Detector(profile, n_clutter, max_detections, device=self.device)
+            self._graph = (_WindowGraph(self._processor, self._detector, emit)
+                           if self.device.type == "cuda" else None)
         self._queue: "queue.Queue[Optional[tuple]]" = queue.Queue(maxsize=queue_depth)
         self._thread: Optional[threading.Thread] = None
         self._producer_error: Optional[BaseException] = None
@@ -185,11 +300,8 @@ class StreamingPipeline:
             res = self.reader.read_frame(idx)
             if not res.frame_completed:
                 break
-            # (prt, samples, channels); a copy, since a reader may reuse its
-            # buffer, and pinned so the device copy is asynchronous
             with span("stream.pin", "pin") as s:
-                host = torch.from_numpy(np.asarray(res.iq, dtype=np.complex64))
-                host = host.pin_memory() if self.device.type == "cuda" else host.clone()
+                host = self._pin(res)
                 s.nbytes = host.numel() * host.element_size()
             t0 = time.perf_counter()
             self._queue.put((idx, host))
@@ -198,6 +310,23 @@ class StreamingPipeline:
             self.counters.add("producer_wait_s", time.perf_counter() - t0)
             self.counters.add("frames_ingested")
             self.counters.add("prts_parsed", self.profile.prt_per_frame)
+
+    def _pin(self, res) -> torch.Tensor:
+        """A frame as (prt, samples, channels) in host memory of its own
+        (a reader may reuse its buffers), pinned so that the device copy is
+        asynchronous.  A G1 frame's beams are written into one (beams, prt,
+        samples) block, returned as that view: the device copy then takes
+        the block whole, and the consumer's permute gives it back
+        contiguous."""
+        pin = self.device.type == "cuda"
+        if not isinstance(res, BeamFrame):
+            host = torch.from_numpy(np.asarray(res.iq, dtype=np.complex64))
+            return host.pin_memory() if pin else host.clone()
+        host = torch.empty((len(res.beams),) + res.beams[0].shape, dtype=torch.complex64,
+                           pin_memory=pin)
+        for dst, beam in zip(host, res.beams):
+            dst.copy_(torch.from_numpy(beam))
+        return host.permute(1, 2, 0)
 
     # ------------------------------------------------------------- consumer
     def _stage(self, host: torch.Tensor) -> torch.Tensor:
@@ -222,10 +351,14 @@ class StreamingPipeline:
 
     @torch.inference_mode()
     def _process(self, prev: torch.Tensor, cur: torch.Tensor, prev_idx: int):
+        """``(rdms, flags, dets, hits)`` of the window ``(prev, cur)``,
+        ``hits`` the count of its cascade flags."""
         if self._mesh is None:
+            if self._graph is not None:
+                return self._graph(prev, cur)
             rdms = self._processor(prev, cur)
             flags, _, dets = self._detector(rdms)
-            return rdms, flags, dets
+            return rdms, flags, dets, int(flags.sum())
         # consecutive frames reuse the carried compressed frame; anything
         # else (a stream restart) compresses the window's first frame anew
         pc = self._carry.pop(prev_idx, None)
@@ -236,9 +369,10 @@ class StreamingPipeline:
         spec = ("dp", None, None, "sp")
         rdms, flags = gather_blocks(rdms, self._mesh, spec), gather_blocks(flags, self._mesh, spec)
         if rdms is None:             # not the mesh's first rank
-            return None, None, None
+            return None, None, None, 0
         rdms, flags = rdms[: self._n_beams], flags[: self._n_beams]
-        return rdms, flags, extract_detections(flags, rdms, self._max_detections)
+        return (rdms, flags, extract_detections(flags, rdms, self._max_detections),
+                int(flags.sum()))
 
     def __iter__(self) -> Iterator[StreamResult]:
         if self._block_runner is not None:
@@ -322,8 +456,7 @@ class StreamingPipeline:
             idx, host = item
             dev = self._stage(host)
             if prev is not None and idx == prev_idx + 1:
-                rdms, flags, dets = self._process(prev, dev, prev_idx)
-                hits = 0 if flags is None else int(flags.sum())
+                rdms, flags, dets, hits = self._process(prev, dev, prev_idx)
                 self.counters.add("windows_processed")
                 self.counters.add("cfar_hits", hits)
                 if self._emit == "detections":

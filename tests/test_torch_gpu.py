@@ -490,6 +490,146 @@ def test_stream_on_card_matches_cpu(tmp_path, rng, cuda_device):
         assert torch.equal(f, g_flags) and g_hits == int(f.sum())
 
 
+@pytest.mark.gpu
+def test_stream_graph_replays_match_cpu(tmp_path, rng, cuda_device):
+    """Five windows on the card: the first runs eagerly, the second captures
+    the window's graph, the rest replay it (B2 and B1 launched from Python
+    twice in all).  Every window, held until the stream ends, agrees with
+    the CPU's stream, its flags and detection list are those of the eager
+    detector on the card over its RDMs, and a stream that emits only
+    detections yields the same lists and flag counts."""
+    from radar_signal_process_tpu_torch.ingest import G2FrameReader
+    from radar_signal_process_tpu_torch.models.detect import make_detector
+    from radar_signal_process_tpu_torch.models.streaming import StreamingPipeline
+    from radar_signal_process_tpu_torch.sim import write_g2_capture
+
+    prof = dataclasses.replace(
+        G2_PROFILE, prt_per_frame=64, point_prt=344, segment_points=(40, 80, 224),
+        cfar_segments=((0, 40), (40, 120), (120, 344)), n_channels=2, n_beams=2,
+    )
+    shape = (6, 64, 344, 2)
+    iq = (rng.integers(-300, 300, shape) + 1j * rng.integers(-300, 300, shape)).astype(np.complex64)
+    iq[:, :, 200, 1] += 20000.0 * np.exp(1j * 2 * np.pi * 0.25 * np.arange(6 * 64)).reshape(6, 64)
+    write_g2_capture(str(tmp_path), iq, prof, data_type=1)
+
+    def run(device, emit="full"):
+        return list(StreamingPipeline(G2FrameReader(str(tmp_path), prof), prof, win_size=2,
+                                      max_frames=6, emit=emit, device=device,
+                                      use_host_parallel=False))
+
+    launches = (krdm.doppler_rdm.launches, kcfar.cascaded_cfar2d.launches)
+    got = run(cuda_device)
+    assert krdm.doppler_rdm.launches == launches[0] + 2
+    assert kcfar.cascaded_cfar2d.launches == launches[1] + 2
+    want = run("cpu")
+    assert [r.frame_idx for r in got] == [r.frame_idx for r in want] == [0, 1, 2, 3, 4]
+    assert len({r.rdms.data_ptr() for r in got}) == len(got)
+    plain = make_detector(prof, device="cpu")
+    eager = make_detector(prof, max_detections=64, device=cuda_device)
+    for g, w in zip(got, want):
+        scale = float(w.rdms.abs().max())
+        torch.testing.assert_close(g.rdms.cpu() / scale, w.rdms / scale, rtol=RTOL, atol=2e-5)
+        f, _, _ = plain(g.rdms.cpu())
+        assert torch.equal(f, g.flags.cpu()) and g.cfar_hits == int(f.sum()) > 0
+        with torch.inference_mode():
+            f, _, dets = eager(g.rdms)
+        assert torch.equal(f, g.flags)
+        for a, b in zip(g.detections, dets):
+            assert torch.equal(a, b)
+    lean = run(cuda_device, emit="detections")
+    for g, d in zip(got, lean):
+        assert d.rdms is None and d.flags is None and d.cfar_hits == g.cfar_hits
+        for a, b in zip(g.detections, d.detections):
+            assert torch.equal(a, b)
+
+
+class _G1Frames:
+    """A G1-format reader over frames in memory: frames from 1, ``(left,
+    right, angles, meta)``; past the last one a short read."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def read_frame(self, idx):
+        if idx > len(self.frames):
+            raise EOFError("end of the capture")
+        f = self.frames[idx - 1]
+        return f[0], f[1], np.zeros(f.shape[1]), {}
+
+
+def _g1_frames(rng, n):
+    """(n, 2, 1536, 1031) integer-valued frames, a target in both beams'
+    long segment at 40 Doppler bins off zero velocity."""
+    shape = (n, 2, 1536, 1031)
+    x = (rng.integers(-300, 300, shape) + 1j * rng.integers(-300, 300, shape))
+    ramp = np.exp(2j * np.pi * 40 / 1536 * np.arange(n * 1536)).reshape(n, 1, 1536)
+    x[:, :, :, 600] += 2000.0 * ramp
+    return x.astype(np.complex64)
+
+
+@pytest.mark.gpu
+def test_g1_window_on_card_matches_plain(rng, cuda_device):
+    """One G1 window at its published widths (2 beams, 1536 x 1031, re-
+    concatenated to 868 columns): the windowed stream on the card launches
+    B2 and B1 once and agrees with the same stream on the CPU (plain
+    versions); the beams are staged as one block, contiguous on the card."""
+    from radar_signal_process_tpu_torch.config import G1_PROFILE
+    from radar_signal_process_tpu_torch.models.detect import make_detector
+    from radar_signal_process_tpu_torch.models.streaming import StreamingPipeline, TwoBeamReader
+
+    frames = _g1_frames(rng, 2)
+
+    def run(device):
+        pipe = StreamingPipeline(TwoBeamReader(_G1Frames(frames)), G1_PROFILE, win_size=4,
+                                 max_detections=16, device=device, use_host_parallel=False)
+        return pipe, [(r.rdms.cpu(), r.flags.cpu(), r.cfar_hits) for r in pipe]
+
+    launches = (krdm.doppler_rdm.launches, kcfar.cascaded_cfar2d.launches)
+    pipe, got = run(cuda_device)
+    assert krdm.doppler_rdm.launches == launches[0] + 1
+    assert kcfar.cascaded_cfar2d.launches == launches[1] + 1
+    staged = pipe._stage(pipe._pin(TwoBeamReader(_G1Frames(frames)).read_frame(1)))
+    assert staged.is_contiguous() and torch.equal(staged.cpu(), torch.from_numpy(frames[1]))
+    _, want = run("cpu")
+    assert len(got) == len(want) == 1
+    (g_rdm, g_flags, g_hits), (w_rdm, _, _) = got[0], want[0]
+    assert tuple(g_rdm.shape) == (2, 4, 1536, 868)
+    scale = float(w_rdm.abs().max())
+    torch.testing.assert_close(g_rdm / scale, w_rdm / scale, rtol=RTOL, atol=2e-5)
+    f, _, _ = make_detector(G1_PROFILE, device="cpu")(g_rdm)
+    assert torch.equal(f, g_flags) and g_hits == int(f.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_cli_stream_g1_capture_on_card(tmp_path, rng, cuda_device, capsys):
+    """``cli stream --profile G1`` over a written three-frame G1 capture on
+    the card: two windows, bit for bit those of the windowed stream on the
+    reader's frames, and a clean end at the capture's end."""
+    import json
+
+    from radar_signal_process_tpu_torch import cli
+    from radar_signal_process_tpu_torch.config import G1_PROFILE
+    from radar_signal_process_tpu_torch.ingest import g1_reader_class
+    from radar_signal_process_tpu_torch.models.streaming import StreamingPipeline, TwoBeamReader
+    from radar_signal_process_tpu_torch.sim import write_g1_capture
+
+    frames = _g1_frames(rng, 3)
+    write_g1_capture(str(tmp_path), frames[:, 0], frames[:, 1])
+    got = []
+    args = cli.build_parser().parse_args(
+        ["stream", "--input", str(tmp_path), "--profile", "G1", "--frames", "8"])
+    assert cli.cmd_stream(args, on_result=got.append) == 0
+    assert [f["frame"] for f in json.loads(capsys.readouterr().out.strip())["frames"]] == [0, 1]
+    reader = TwoBeamReader(g1_reader_class()(str(tmp_path)))
+    want = list(StreamingPipeline(reader, G1_PROFILE, max_detections=16, device=cuda_device))
+    assert [r.frame_idx for r in got] == [r.frame_idx for r in want] == [0, 1]
+    for g, w in zip(got, want):
+        assert torch.equal(g.rdms, w.rdms) and torch.equal(g.flags, w.flags)
+        for a, b in zip(g.detections, w.detections):
+            assert torch.equal(a, b)
+        assert g.cfar_hits == w.cfar_hits > 0
+
+
 # ------------------------------------------------------------------------ B3
 # name -> (batch shape, n_prt, n_in, n_out, n_fft, DFT shift, columns around
 # the segment in the row it is read from)
