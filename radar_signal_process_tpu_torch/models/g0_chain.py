@@ -26,6 +26,10 @@ frame's other values (velocity scale, Doppler cell, monopulse slope, beam
 elevation) are one row of a table made once on the card, copied into the
 block the graph reads; the notch masks and spline matrices are made once
 too, so a frame copies nothing from the host but its beams.
+
+On a CUDA device the beams come through a ring of two pinned host slots
+that the chain keeps, in blocks of rows: the host copies one block into the
+slot while the card's DMA moves the block before it, on the current stream.
 """
 
 from __future__ import annotations
@@ -68,6 +72,11 @@ from radar_signal_process_tpu_torch.params import g0_chain_params
 from radar_signal_process_tpu_torch.utils.profiling import span
 
 C_LIGHT = 299792458.0
+# a beam goes through a pinned slot in equal blocks of rows of at most about
+# this many bytes (G0: two of 3.48 MB): the DMA of each block runs while the
+# host copies the next; smaller blocks leave the host's copy fewer threads
+# (torch splits a copy into chunks of 32768 elements) and cost more calls
+STAGE_BLOCK_BYTES = 1 << 22
 
 
 class G0FrameParams(NamedTuple):
@@ -92,6 +101,17 @@ class G0FrameResult(NamedTuple):
     detections_long: DetectionList
     measurements_short: Measurements
     measurements_long: Measurements
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """Host beam ``x`` as a CPU tensor, sharing an array's memory where torch
+    can (else a complex64 copy of it)."""
+    if not isinstance(x, np.ndarray):
+        return x
+    try:
+        return torch.from_numpy(x)
+    except (TypeError, ValueError):     # a dtype, byte order or strides torch cannot share
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.complex64))
 
 
 def _leaves(x) -> list:
@@ -177,7 +197,10 @@ class G0Chain(nn.Module):
 
     On a CUDA device :meth:`process_frame` replays its device work as a CUDA
     graph (see there); ``captures``, ``replays`` and ``eager_frames`` count
-    the graphs captured and the frames replayed or run eagerly.
+    the graphs captured and the frames replayed or run eagerly.  Host beams
+    go to the card through pinned slots (:meth:`beams`): ``pinned_frames``
+    counts the frames staged so, ``slot_waits`` the times a slot was still
+    being read by the card when the host came to write it.
     """
 
     def __init__(
@@ -245,6 +268,8 @@ class G0Chain(nn.Module):
         # widths upsampled by a spline copy their matrix from the host, so
         # those frames run eagerly
         self.captures = self.replays = self.eager_frames = 0
+        self.pinned_frames = self.slot_waits = 0
+        self._ring = None
         self._graphed = self.device.type == "cuda" and (
             spectral_width_db is None or spectral_width_interp <= 1)
         self._graphs: dict = {}
@@ -297,18 +322,63 @@ class G0Chain(nn.Module):
 
     # ------------------------------------------------------------------ core
     def beams(self, left, right, out: torch.Tensor | None = None) -> torch.Tensor:
-        """(2, prt, point_prt) complex64 stack of the two beams on the device,
-        each beam one copy from the host; into ``out`` when given."""
+        """(2, prt, point_prt) complex64 stack of the two beams on the device;
+        into ``out`` when given.
+
+        On a CUDA device, beams on the host (arrays or CPU tensors of any
+        dtype the copy converts) go through the next slot of the chain's ring
+        of two pinned host slots, in blocks of rows: each block is copied
+        into the slot on the host's intra-op threads, converted to complex64
+        on the way, then onto the card without blocking the host, on the
+        current stream, so the card's copy of a block runs while the host
+        copies the next.  The caller's arrays are free once this returns.
+        Elsewhere each beam is one copy."""
         shape = (self.profile.prt_per_frame, self.profile.point_prt)
+        for x in (left, right):
+            if tuple(x.shape) != shape:
+                raise ValueError(f"a beam of {tuple(x.shape)} samples, not {shape}")
         if out is None:
             out = torch.empty((2,) + shape, dtype=COMPLEX, device=self.device)
+        if self.device.type == "cuda" and not any(
+                isinstance(x, torch.Tensor) and x.device.type != "cpu" for x in (left, right)):
+            return self._stage((left, right), out)
         for dst, x in zip(out, (left, right)):
             if isinstance(x, np.ndarray):
                 x = torch.from_numpy(np.asarray(x, dtype=np.complex64))
-            if tuple(x.shape) != shape:
-                raise ValueError(f"a beam of {tuple(x.shape)} samples, not {shape}")
             with span("g0.h2d", "copy", x.numel() * x.element_size()):
                 dst.copy_(x)
+        return out
+
+    def _pinned_ring(self, shape: tuple) -> list:
+        """Two pinned host slots of a frame's beams, each with the event that
+        the last copy out of it records."""
+        return [(torch.empty(shape, dtype=COMPLEX, pin_memory=True), torch.cuda.Event())
+                for _ in range(2)]
+
+    def _stage(self, beams: tuple, out: torch.Tensor) -> torch.Tensor:
+        """The host ``beams`` into ``out`` on the card through the ring's next
+        slot (see :meth:`beams`); the slot is written only once the card has
+        read what the frame before last left in it."""
+        if self._ring is None:
+            self._ring = self._pinned_ring(tuple(out.shape))
+        slot, read = self._ring[self.pinned_frames % len(self._ring)]
+        if not read.query():
+            self.slot_waits += 1
+            read.synchronize()
+        rows = out.shape[1]
+        n_blocks = math.ceil(slot[0].numel() * slot.element_size() / STAGE_BLOCK_BYTES)
+        step = math.ceil(rows / n_blocks)
+        for x, pinned, dst in zip(beams, slot, out):
+            src = _host_tensor(x)
+            for r in range(0, rows, step):
+                block = pinned[r:r + step]
+                nbytes = block.numel() * block.element_size()
+                with span("g0.pin", "pin", nbytes):
+                    block.copy_(src[r:r + step])
+                with span("g0.h2d", "copy", nbytes):
+                    dst[r:r + step].copy_(block, non_blocking=True)
+        read.record(torch.cuda.current_stream(self.device))
+        self.pinned_frames += 1
         return out
 
     def front(self, beams: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

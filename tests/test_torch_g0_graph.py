@@ -138,6 +138,111 @@ def test_g0_chain_refuses_a_beam_of_another_shape():
         chain.process_frame(x[0][:, :-1], x[1][:, :-1])
 
 
+# ------------------------------------------------------- the beams' copy
+def test_g0_cpu_beams_make_no_ring():
+    chain = G0Chain(G0_TINY, TINY_CHAIN, 5, 2, device="cpu")
+    x = _frame(5)
+    for fi in (3, 10):
+        chain.process_frame(x[0], x[1], freq_index=fi, beam_pos=1)
+    assert torch.equal(chain.beams(x[0], x[1]), torch.from_numpy(x))
+    assert chain._ring is None and (chain.pinned_frames, chain.slot_waits) == (0, 0)
+
+
+def test_g0_cpu_chain_accepts_a_complex128_beam():
+    chain = G0Chain(G0_TINY, TINY_CHAIN, 5, 2, device="cpu")
+    x = _frame(6)
+    wide = x.astype(np.complex128)
+    assert torch.equal(chain.beams(wide[0], wide[1]), torch.from_numpy(x))
+    _assert_same(chain.process_frame(wide[0], wide[1]), chain.process_frame(x[0], x[1]))
+
+
+class _Event:
+    """A stand-in for ``torch.cuda.Event``: ``busy`` queries report the copies
+    out of the slot still running; each record is counted."""
+
+    def __init__(self):
+        self.busy, self.records, self.waits = 0, 0, 0
+
+    def query(self):
+        self.busy -= 1
+        return self.busy < 0
+
+    def synchronize(self):
+        self.waits += 1
+
+    def record(self, stream=None):
+        self.records += 1
+
+
+def _staging(monkeypatch, rows_a_block):
+    """A CPU chain whose ring is two plain host slots with stand-in events,
+    in blocks of ``rows_a_block`` rows."""
+    monkeypatch.setattr(g0_chain, "STAGE_BLOCK_BYTES", rows_a_block * G0_TINY.point_prt * 8)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: None)
+    monkeypatch.setattr(G0Chain, "_pinned_ring", lambda self, shape: [
+        (torch.empty(shape, dtype=torch.complex64), _Event()) for _ in range(2)])
+    return G0Chain(G0_TINY, TINY_CHAIN, 5, 2, device="cpu")
+
+
+BEAM_FORMS = {
+    "complex64": np.copy,
+    "complex128": lambda x: x.astype(np.complex128),
+    "cpu-tensor": lambda x: torch.from_numpy(x.copy()),
+    "reversed-rows": lambda x: np.ascontiguousarray(x[::-1])[::-1],
+    "big-endian": lambda x: x.astype(">c8"),
+}
+
+
+@pytest.mark.parametrize("form", list(BEAM_FORMS))
+def test_g0_pinned_slots_stage_the_beams_in_row_blocks(monkeypatch, form):
+    """Through the ring (on the CPU, with plain slots): each beam arrives
+    whole and as complex64 from every host form, in three blocks of rows
+    for a block size of 50 rows (43, 43 and 42) whose ``g0.pin`` and ``g0.h2d`` spans each count the
+    frame's bytes once; the slots alternate, each records its event once a
+    frame, and the caller's arrays are free when the copy returns."""
+    from radar_signal_process_tpu_torch.utils import profiling
+
+    chain = _staging(monkeypatch, 50)
+    frames = [_frame(k) for k in range(3)]
+    profiling.clear()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            for x in frames:
+                beams = [BEAM_FORMS[form](b) for b in x]
+                out = chain._stage(beams, torch.empty(x.shape, dtype=torch.complex64))
+                for b in beams:
+                    b[...] = 0
+                assert out.dtype == torch.complex64 and torch.equal(out, torch.from_numpy(x))
+        got = profiling.spans()
+    finally:
+        profiling.clear()
+    blocks = [43, 43, 42] * 2
+    row = G0_TINY.point_prt * 8
+    for name, kind in (("g0.pin", "pin"), ("g0.h2d", "copy")):
+        sizes = [s.nbytes for s in got if s.name == name]
+        assert {s.kind for s in got if s.name == name} == {kind}
+        assert sizes == [n * row for n in blocks] * len(frames)
+        assert sum(sizes) == len(frames) * frames[0].nbytes
+    assert [s.name for s in got[:2]] == ["g0.pin", "g0.h2d"]
+    assert [e.records for _, e in chain._ring] == [2, 1]
+    assert (chain.pinned_frames, chain.slot_waits) == (3, 0)
+
+
+def test_g0_pinned_slot_waits_for_the_card_before_its_reuse(monkeypatch):
+    """A slot whose copies out have not run when the host comes back to it
+    is waited on, and counted; the one-block beam (the chain's own size)
+    takes one block a beam."""
+    chain = _staging(monkeypatch, 4 * G0_TINY.prt_per_frame)
+    x = _frame(7)
+    for k in range(4):
+        if k == 2:
+            chain._ring[0][1].busy = 1      # frame 0's copies still running
+        out = chain._stage(tuple(x), torch.empty(x.shape, dtype=torch.complex64))
+        assert torch.equal(out, torch.from_numpy(x))
+    assert (chain.pinned_frames, chain.slot_waits) == (4, 1)
+    assert [e.waits for _, e in chain._ring] == [1, 0]
+
+
 # ------------------------------------------- the graph path, on a stand-in
 class _Recorder(TorchDispatchMode):
     def __init__(self):

@@ -859,6 +859,85 @@ def test_g0_chain_on_card_matches_cpu(tmp_path, rng, cuda_device):
         assert abs(float(m.range_m[0]) - r_true) < 2 * prof.delta_r
 
 
+def _g0_on_card(cuda_device, cfg=None, **kwargs):
+    """A G0 chain whose beams come from host arrays (the pinned ring) and
+    one fed the same beams as tensors already on the card."""
+    from radar_signal_process_tpu_torch.config import G0ChainConfig
+    from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
+
+    cfg = cfg or G0ChainConfig(mtd_clutter_v=0.9)     # two n_clutter over the plan
+    return (G0Chain(G0_PROFILE, cfg, device=cuda_device, **kwargs),
+            G0Chain(G0_PROFILE, cfg, device=cuda_device, **kwargs))
+
+
+# frequencies whose n_clutter alternate between the two keys of ``_g0_on_card``
+G0_TWO_KEYS = [0, 10, 1, 9, 0, 10, 2, 8]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [None, -10.0], ids=["graph", "eager-spectral-width"])
+def test_g0_chain_pinned_beams_equal_card_beams(rng, cuda_device, width):
+    """Frames alternating two ``n_clutter`` (each key's eager frame, capture
+    and replays; or every frame eager where spectral widths are upsampled):
+    beams staged from host arrays through the pinned ring give, bit for bit,
+    what the chain gives on beams already on the card.  With a sync each
+    frame no slot is ever waited on."""
+    pinned, card = _g0_on_card(cuda_device, spectral_width_db=width,
+                               spectral_width_interp=1 if width is None else 2)
+    keys = {pinned.frame_params(fi, 0)[1] for fi in G0_TWO_KEYS}
+    assert len(keys) == 2
+    for k, (fi, (left, right)) in enumerate(zip(G0_TWO_KEYS, _g0_frames(rng, len(G0_TWO_KEYS)))):
+        got = pinned.process_frame(left, right, freq_index=fi, beam_pos=k % 12)
+        want = card.process_frame(torch.from_numpy(left).to(cuda_device),
+                                  torch.from_numpy(right).to(cuda_device),
+                                  freq_index=fi, beam_pos=k % 12)
+        for a, b in zip(_g0_tensors(got), _g0_tensors(want), strict=True):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (k, fi)
+        torch.cuda.synchronize()
+    n = len(G0_TWO_KEYS)
+    assert (pinned.pinned_frames, pinned.slot_waits) == (n, 0)
+    assert card.pinned_frames == 0 and card._ring is None
+    if width is None:
+        assert pinned.captures == 2 and pinned.replays == n - 2
+    else:
+        assert pinned.eager_frames == n
+
+
+@pytest.mark.gpu
+def test_g0_chain_caller_may_overwrite_its_beams_at_once(rng, cuda_device):
+    """Frames handed over with no sync between them, each caller's array
+    overwritten as soon as ``process_frame`` returns: every result is that
+    of its own beams, and every frame went through the ring."""
+    pinned, card = _g0_on_card(cuda_device)
+    frames = list(_g0_frames(rng, len(G0_TWO_KEYS)))
+    left, right = (np.empty_like(frames[0][0]) for _ in range(2))
+    got = []
+    for fi, (a, b) in zip(G0_TWO_KEYS, frames):
+        left[...], right[...] = a, b
+        got.append(pinned.process_frame(left, right, freq_index=fi, beam_pos=3))
+        left[...] = right[...] = 0
+    for fi, res, (a, b) in zip(G0_TWO_KEYS, got, frames):
+        want = card.process_frame(torch.from_numpy(a).to(cuda_device),
+                                  torch.from_numpy(b).to(cuda_device), freq_index=fi, beam_pos=3)
+        assert all(torch.equal(x, y) for x, y in zip(_g0_tensors(res), _g0_tensors(want),
+                                                      strict=True)), fi
+    assert pinned.pinned_frames == len(frames)
+
+
+@pytest.mark.gpu
+def test_g0_chain_converts_a_complex128_beam(rng, cuda_device):
+    """A complex128 beam, converted on its way into the pinned slot, gives
+    the result of its complex64 cast, bit for bit."""
+    wide, narrow = _g0_on_card(cuda_device)
+    for k, (left, right) in enumerate(_g0_frames(rng, 3)):
+        got = wide.process_frame(left.astype(np.complex128), right.astype(np.complex128),
+                                 freq_index=4, beam_pos=k)
+        want = narrow.process_frame(left, right, freq_index=4, beam_pos=k)
+        assert all(torch.equal(x, y) for x, y in zip(_g0_tensors(got), _g0_tensors(want),
+                                                      strict=True)), k
+    assert wide.pinned_frames == narrow.pinned_frames == 3
+
+
 def _g0_frames(rng, n):
     """``n`` G0 frames (left, right): a target at long cell 100 and short
     cell 20, 30 Doppler bins off zero, in fresh noise each."""

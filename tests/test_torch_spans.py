@@ -18,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import Trace
-from benchmark.metrics import h2d_gbps, host_launch_ms, idle_launch_pct, stage_pin_copy_ms
+from benchmark.harness import Spans, Trace
+from benchmark.metrics import (g0_pin_copy_ms, h2d_gbps, host_launch_ms, idle_launch_pct,
+                               stage_pin_copy_ms)
 from radar_signal_process_tpu_torch.config import G0_PROFILE, G2_PROFILE, G0ChainConfig
 from radar_signal_process_tpu_torch.ingest import FrameResult
 from radar_signal_process_tpu_torch.models.g0_chain import G0Chain
@@ -297,7 +298,30 @@ def test_readers_by_hand(monkeypatch):
     assert idle_launch_pct.read(ctx) == pytest.approx(100.0 * (0.2 + 0.3) / 1.0)
 
 
-@pytest.mark.parametrize("reader", [stage_pin_copy_ms, h2d_gbps, host_launch_ms, idle_launch_pct])
+def test_g0_pin_copy_by_hand(monkeypatch):
+    """Each whole frame of the traced part (a harness ``next`` span inside
+    it) sums its ``g0.pin`` spans; the median of the sums, frames with none
+    left out."""
+    pins = [("g0.pin", "pin", 100.101, 100.102, 1, 10), ("g0.pin", "pin", 100.103, 100.105, 1, 10),
+            ("g0.h2d", "copy", 100.102, 100.103, 1, 10),
+            ("g0.pin", "pin", 100.201, 100.205, 1, 10), ("g0.pin", "pin", 100.206, 100.2065, 1, 10),
+            ("g0.pin", "pin", 100.301, 100.302, 1, 10),
+            ("g0.pin", "pin", 100.91, 100.92, 1, 10),      # its frame ends after the traced part
+            ("g0.pin", "pin", 99.99, 99.995, 1, 10)]       # before it
+    monkeypatch.setattr(profiling, "spans", lambda: [profiling.Span(*s) for s in pins])
+    ctx = _ctx(KERNELS)
+    ctx.spans = Spans()
+    ctx.spans.items = [("next", 100.1, 100.15, 1), ("pull", 100.15, 100.16, 1),
+                       ("next", 100.2, 100.25, 1), ("next", 100.3, 100.35, 1),
+                       ("next", 100.4, 100.45, 1),        # no pinned copy
+                       ("next", 100.9, 101.05, 1), ("next", 99.98, 99.999, 1)]
+    assert g0_pin_copy_ms.read(ctx) == pytest.approx(3.0)
+    ctx.spans.items = ctx.spans.items[2:]
+    assert g0_pin_copy_ms.read(ctx) == pytest.approx(2.75)
+
+
+@pytest.mark.parametrize("reader", [stage_pin_copy_ms, h2d_gbps, host_launch_ms, idle_launch_pct,
+                                    g0_pin_copy_ms])
 def test_readers_find_nothing_without_spans(monkeypatch, reader):
     ctx = _ctx(KERNELS)
     assert reader.read(ctx) is None                 # an empty store
